@@ -1,0 +1,345 @@
+#!/usr/bin/env python
+"""Chip smoke of the PyTorch/CUDA port (dflash_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (nothing is caught):
+  1. device: card name and power limit; TF32 off for matmuls and cuDNN.
+  2. build: every CUDA kernel from dflash_tpu_torch/kernels/csrc, in parallel.
+  3. kernels vs plain at the main path's shapes (nh 32, n_kv 8, d 128), bf16
+     and f32: max abs error against the plain PyTorch version, tolerance,
+     kernel / plain / library (scaled_dot_product_attention, a yardstick the
+     port never calls) times from CUDA events, and the bound
+     max(bytes / 3.35 TB/s, flops / peak) of the same work.
+  4. exact parity, f32, Qwen3-8B at full width and depth, random weights from
+     a seed: SpecEngine.generate == SpecEngine.ar_generate token for token on
+     two 600-token prompts (padded to 640), and the kernel launch counts of
+     that run are exactly what the path implies.
+  5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
+     draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
+     agreement length (printed, not asserted: bf16 greedy can flip on ties).
+The last two lines are the kernels' JSON summary and the device JSON.
+Exits non-zero, printing no result, without CUDA.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
+from dflash_tpu_torch.kernels import _build, prefill_flash, verify_fused
+from dflash_tpu_torch.models import dflash_draft, qwen3
+from dflash_tpu_torch.spec.engine import SpecEngine
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate; bf16 tensor-core and
+# f32 non-tensor-core rates.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+NH, NKV, D = QWEN3_8B.num_attention_heads, QWEN3_8B.num_key_value_heads, QWEN3_8B.head_dim
+BLOCK = 16
+PROMPT_LEN, PROMPT_CAP = 600, 640
+PARITY_NEW, TIMING_NEW = 64, 128
+REF_TAU = 7.46
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def make_forced_acc(n_cycles: int, block_size: int, tau_target: float, seed: int = 0) -> np.ndarray:
+    """Deterministic acc (= tau - 1) pattern with mean tau ~= tau_target (the
+    JAX package's bench.py emulation, copied)."""
+    rng = np.random.default_rng(seed)
+    lo = int(np.floor(tau_target))
+    frac = tau_target - lo
+    taus = np.where(rng.random(n_cycles) < frac, lo + 1, lo)
+    return (np.clip(taus, 1, block_size) - 1).astype(np.int32)
+
+
+def cuda_ms(fns: list, iters: int) -> float:
+    """Mean device ms per call over ``iters`` calls cycling through ``fns``
+    (one per input copy, so the working set exceeds L2 as the model's layers
+    do).  The calls are captured in one CUDA graph and the replay is timed
+    with CUDA events, so host launch time between calls is not counted."""
+    for fn in fns[:2]:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    """Input copies whose total exceeds the 50 MB L2 cache."""
+    return max(1, min(32, math.ceil(120e6 / nbytes)))
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g) -> dict:
+    es = torch.tensor([], dtype=dtype).element_size()
+    per_call = (2 * T * NKV * D + 2 * B * NH * D + 2 * B * NKV * D) * es
+    n = copies_for(per_call)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    sets = [(randn(1, B, NH, D), randn(1, T, NKV, D), randn(1, T, NKV, D),
+             randn(1, B, NKV, D), randn(1, B, NKV, D)) for _ in range(n)]
+    mask = torch.ones(B, B, dtype=torch.bool, device="cuda")
+    if not all_true:
+        mask = torch.tril(mask)
+    scale = D ** -0.5
+    q, ck, cv, bk, bv = sets[0]
+    out = verify_fused.fused_ctx_block_attention(q, ck, None, cv, None, bk, bv, ctx_len, mask, scale)
+    ref = verify_fused.plain(q, ck, cv, bk, bv, ctx_len, mask, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+    def sdpa_inputs(q, ck, cv, bk, bv):
+        k = torch.cat([ck[0, :ctx_len], bk[0]]).transpose(0, 1)[None]  # [1, n_kv, ctx+B, d]
+        v = torch.cat([cv[0, :ctx_len], bv[0]]).transpose(0, 1)[None]
+        m = torch.cat([torch.ones(B, ctx_len, dtype=torch.bool, device="cuda"), mask], dim=1)
+        return q[0].transpose(0, 1)[None], k, v, m
+
+    lib = [sdpa_inputs(*s) for s in sets]
+    ms = cuda_ms([lambda s=s: verify_fused.fused_ctx_block_attention(
+        s[0], s[1], None, s[2], None, s[3], s[4], ctx_len, mask, scale) for s in sets], 50)
+    plain_ms = cuda_ms([lambda s=s: verify_fused.plain(*s, ctx_len, mask, scale) for s in sets], 10)
+    library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
+        a[0], a[1], a[2], attn_mask=a[3], scale=scale, enable_gqa=True) for a in lib], 50)
+    nbytes = (2 * B * NH * D + 2 * ctx_len * NKV * D + 2 * B * NKV * D) * es + B * B
+    flops = 4 * NH * D * (B * ctx_len + int(mask.sum()))
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="verify_fused", dtype=str(dtype).split(".")[-1], B=B,
+                mask="all_true" if all_true else "causal", T=T, ctx_len=ctx_len,
+                max_abs_err=err, tol=TOL[dtype], kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def prefill_case(dtype, S: int, g) -> dict:
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * S * NH * D + 2 * S * NKV * D) * es
+    n = copies_for(nbytes)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    sets = [(randn(1, S, NH, D), randn(1, S, NKV, D), randn(1, S, NKV, D)) for _ in range(n)]
+    scale = D ** -0.5
+    q, k, v = sets[0]
+    out = prefill_flash.flash_prefill_attention(q, k, v, scale)
+    ref = prefill_flash.plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+    lib = [tuple(t[0].transpose(0, 1)[None] for t in s) for s in sets]
+    iters = 20 if S <= 640 else 5
+    ms = cuda_ms([lambda s=s: prefill_flash.flash_prefill_attention(*s, scale) for s in sets], iters)
+    plain_ms = cuda_ms([lambda s=s: prefill_flash.plain(*s, scale) for s in sets], 3)
+    library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
+        *a, is_causal=True, scale=scale, enable_gqa=True) for a in lib], iters)
+    flops = 4 * NH * D * (S * (S + 1) // 2)
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="prefill_flash", dtype=str(dtype).split(".")[-1], S=S, max_abs_err=err,
+                tol=TOL[dtype], kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5
+# ---------------------------------------------------------------------------
+
+def build_engine(dtype, max_new: int) -> SpecEngine:
+    dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=BLOCK)
+    assert dcfg.target_layer_ids == (18,)
+    t_params = qwen3.init_params(0, QWEN3_8B, dtype, device="cuda")
+    d_params = dflash_draft.init_params(1, dcfg, dtype, device="cuda")
+    return SpecEngine(QWEN3_8B, dcfg, t_params, d_params, max_new_tokens=max_new,
+                      block_size=BLOCK, prompt_cap=PROMPT_CAP, prompt_bucket=128, device="cuda")
+
+
+def prompts() -> list:
+    return [np.random.default_rng(s).integers(1, QWEN3_8B.vocab_size - 2, size=(1, PROMPT_LEN))
+            for s in range(2)]
+
+
+def reset_counts() -> None:
+    verify_fused.fused_ctx_block_attention.launches = 0
+    prefill_flash.flash_prefill_attention.launches = 0
+
+
+def counts() -> dict:
+    return {"verify_fused": verify_fused.fused_ctx_block_attention.launches,
+            "prefill_flash": prefill_flash.flash_prefill_attention.launches}
+
+
+def parity_phase() -> dict:
+    t0 = time.perf_counter()
+    engine = build_engine(torch.float32, PARITY_NEW)
+    torch.cuda.synchronize()
+    log(f"[parity] f32 Qwen3-8B (L=36, H=4096) + 1-layer draft initialised in "
+        f"{time.perf_counter() - t0:.1f} s, total_len={engine.total_len}")
+    L = QWEN3_8B.num_hidden_layers
+    draft_layers = engine.dcfg.model.num_hidden_layers
+    reset_counts()
+    expected = {"verify_fused": 0, "prefill_flash": 0}
+    for i, prompt in enumerate(prompts()):
+        spec = engine.generate(prompt, temperature=0.0)
+        ar = engine.ar_generate(prompt, temperature=0.0)
+        n_cycles = len(spec.acceptance_lengths)
+        expected["prefill_flash"] += 2 * L
+        expected["verify_fused"] += n_cycles * (L + draft_layers) + PARITY_NEW * L
+        gen = spec.output_ids[0, PROMPT_LEN:]
+        assert gen.size > 0 and gen.min() >= 0 and gen.max() < QWEN3_8B.vocab_size
+        log(f"[parity] prompt {i}: spec {spec.num_output_tokens} tokens in {n_cycles} cycles, "
+            f"AR {ar.num_output_tokens} tokens; spec == AR: "
+            f"{np.array_equal(spec.output_ids, ar.output_ids)}")
+        np.testing.assert_array_equal(spec.output_ids, ar.output_ids)
+    got = counts()
+    log(f"[parity] launches {json.dumps(got)} expected {json.dumps(expected)}")
+    assert got == expected, (got, expected)
+    assert all(v > 0 for v in got.values())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def agreement(a: np.ndarray, b: np.ndarray) -> int:
+    a, b = a[0, PROMPT_LEN:], b[0, PROMPT_LEN:]
+    n = min(a.size, b.size)
+    diff = np.nonzero(a[:n] != b[:n])[0]
+    return int(diff[0]) if diff.size else n
+
+
+def timing_phase() -> dict:
+    engine = build_engine(torch.bfloat16, TIMING_NEW)
+    ps = prompts()
+    forced = make_forced_acc(TIMING_NEW, BLOCK, REF_TAU)
+    engine.generate(ps[0])  # warm-up: cuBLAS heuristics, allocator
+    engine.ar_generate(ps[0])
+    reset_counts()
+    runs = {"ar": [], "spec": [], "spec_forced": []}
+    for rep in range(3):
+        p = ps[rep % 2]
+        runs["ar"].append(engine.ar_generate(p))
+        runs["spec"].append(engine.generate(p))
+        runs["spec_forced"].append(engine.generate(p, forced_acc=forced))
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    res = {
+        "ttft_spec_ms": med([r.time_to_first_token for r in runs["spec"]]) * 1e3,
+        "ttft_ar_ms": med([r.time_to_first_token for r in runs["ar"]]) * 1e3,
+        "ar_tpot_ms": med([r.time_per_output_token for r in runs["ar"]]) * 1e3,
+        "spec_tpot_ms": med([r.time_per_output_token for r in runs["spec"]]) * 1e3,
+        "spec_tau": float(np.mean([t for r in runs["spec"] for t in r.acceptance_lengths])),
+        "spec_forced_tpot_ms": med([r.time_per_output_token for r in runs["spec_forced"]]) * 1e3,
+        "spec_forced_tau": float(np.mean([t for r in runs["spec_forced"] for t in r.acceptance_lengths])),
+        "agreement_tokens": [agreement(s.output_ids, a.output_ids)
+                             for s, a in zip(runs["spec"], runs["ar"])],
+        "new_tokens": TIMING_NEW,
+        "spread_ms": {k: [round(r.time_per_output_token * 1e3, 4) for r in v] for k, v in runs.items()},
+        "launches": counts(),
+    }
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    # phase 1: device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] {_build.sources()} built in {time.perf_counter() - t0:.1f} s")
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # phase 3: kernels vs plain
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T = PROMPT_CAP + TIMING_NEW + BLOCK + 1  # the timing engine's total_len
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, all_true in ((16, False), (16, True), (1, False)):
+            for ctx_len in (0, 1, 700, T - 16):
+                cases.append(verify_case(dtype, B, all_true, ctx_len, T, g))
+                log("[kernel] " + json.dumps(cases[-1]))
+        for S in (128, 640, 2048):
+            cases.append(prefill_case(dtype, S, g))
+            log("[kernel] " + json.dumps(cases[-1]))
+
+    # phase 4: exact parity through the kernels, f32
+    launches = parity_phase()
+
+    # phase 5: timing, bf16
+    timing = timing_phase()
+    log("[timing] " + json.dumps(timing))
+
+    def pick(kernel, **match):
+        return next(c for c in cases if c["kernel"] == kernel and all(c[k] == v for k, v in match.items()))
+
+    main_shapes = {
+        "verify_fused": pick("verify_fused", dtype="bfloat16", B=16, mask="causal", ctx_len=700),
+        "prefill_flash": pick("prefill_flash", dtype="bfloat16", S=640),
+    }
+    meta = {
+        "verify_fused": ("dflash_tpu_torch/kernels/csrc/verify_fused.cu",
+                         "dflash_tpu/kernels/verify_fused.py:219"),
+        "prefill_flash": ("dflash_tpu_torch/kernels/csrc/prefill_flash.cu",
+                          "dflash_tpu/kernels/prefill_flash.py:111"),
+    }
+    summary = [{
+        "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
+        "launches": launches[name], "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"],
+    } for name, c in main_shapes.items()]
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+#!/usr/bin/env python
+"""Where the PyTorch/CUDA port's decode time goes on one NVIDIA GPU.
+
+    python3 scripts/torch_profile_decode.py
+
+Builds the bf16 Qwen3-8B engine of chip_smoke.py (full width and depth,
+random weights from a seed, 1-layer draft, a 600-token prompt padded to 640),
+warms it up, then for AR decode and spec decode (the random draft's own
+acceptance) prints one JSON line each with: the decode's wall ms per token
+without the profiler (two runs); and, for one more decode under
+torch.profiler (the prefill runs before the profiler starts), the device busy
+share (union of kernel intervals over the profiled wall time), kernel
+launches per token, and the kernels that take the most device time.  Needs a
+card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config  # noqa: E402
+from dflash_tpu_torch.models import dflash_draft, qwen3  # noqa: E402
+from dflash_tpu_torch.spec import engine as eng  # noqa: E402
+
+NEW_TOKENS = 32
+
+
+def busy_us(intervals: list) -> float:
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def measure(label: str, prefill, decode, run) -> dict:
+    run()  # warm-up
+    tpots = [run().time_per_output_token * 1e3 for _ in range(2)]
+    state = prefill()
+    start = state.start
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = decode(state)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    n_tok = state.start - start  # tokens committed by the profiled decode
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "path": label,
+        "decode_wall_ms_per_token": tpots,
+        "profiled_tokens": n_tok,
+        "profiled_wall_ms_per_token": prof_wall_us / 1e3 / n_tok,
+        "device_busy_ms_per_token": busy / 1e3 / n_tok,
+        "device_busy_share": busy / prof_wall_us,
+        "kernel_launches_per_token": len(kernels) / n_tok,
+        "top_kernels_ms_per_token": {name[:80]: us / 1e3 / n_tok for name, us in top},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile_decode: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=16)
+    e = eng.SpecEngine(
+        QWEN3_8B, dcfg, qwen3.init_params(0, QWEN3_8B, torch.bfloat16),
+        dflash_draft.init_params(1, dcfg, torch.bfloat16), max_new_tokens=NEW_TOKENS,
+        block_size=16, prompt_cap=640, prompt_bucket=128,
+    )
+    prompt = np.random.default_rng(0).integers(1, QWEN3_8B.vocab_size - 2, size=(1, 600))
+    ids, plen, _ = e._pad_prompt(prompt)
+    max_length = plen + NEW_TOKENS
+    print(torch.cuda.get_device_name(0), flush=True)
+    ar = measure(
+        "ar",
+        lambda: eng._ar_prefill(e.t_params, ids, plen, 0.0, None, tcfg=e.tcfg,
+                                total_len=e.total_len, mask_token_id=dcfg.mask_token_id),
+        lambda st: eng._ar_decode(e.t_params, st, max_length, 0.0, tcfg=e.tcfg,
+                                  stop_token_ids=frozenset()),
+        lambda: e.ar_generate(prompt),
+    )
+    print(json.dumps(ar), flush=True)
+    spec = measure(
+        "spec",
+        lambda: eng._prefill_impl(e.t_params, e.d_params, ids, plen, 0.0, None, tcfg=e.tcfg,
+                                  dcfg=dcfg, total_len=e.total_len),
+        lambda st: eng._decode_impl(e.t_params, e.d_params, st, max_length, 0.0, tcfg=e.tcfg,
+                                    dcfg=dcfg, block_size=16, stop_token_ids=frozenset(),
+                                    max_cycles=NEW_TOKENS),
+        lambda: e.generate(prompt),
+    )
+    print(json.dumps(spec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
