@@ -3,23 +3,35 @@
 
     python3 chip_smoke.py
 
+Two paths are driven: the bf16/f32 path (float weights and KV cache) and
+the int8 serving path (int8 weights from quantize_target_params /
+quantize_draft_params, and kv_quant=True).
+
 Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
   2. build: every CUDA kernel from dflash_tpu_torch/kernels/csrc, in parallel.
-  3. kernels vs plain at the main path's shapes (nh 32, n_kv 8, d 128), bf16
-     and f32: max abs error against the plain PyTorch version, tolerance,
-     kernel / plain / library (scaled_dot_product_attention, a yardstick the
-     port never calls) times from CUDA events, and the bound
-     max(bytes / 3.35 TB/s, flops / peak) of the same work.
+  3. kernels vs plain at the main path's shapes, bf16 and f32: verify_fused
+     (bf16/f32 ctx and int8 ctx; nh 32, n_kv 8, d 128), prefill_flash, and
+     matmul_int8 at every Qwen3-8B projection shape x S in {1, 16, 640}: max
+     abs error against the plain PyTorch version, tolerance, kernel / plain /
+     library times from CUDA events, and the bound max(bytes / 3.35 TB/s,
+     flops / peak) of the same work.  Library yardsticks, which the port
+     never calls: scaled_dot_product_attention (over K/V dequantized
+     beforehand for the int8 ctx), torch.mm with the weight dequantized
+     beforehand to x's dtype, and torch._weight_int8pack_mm where the
+     installed PyTorch runs it on CUDA.
   4. exact parity, f32, Qwen3-8B at full width and depth, random weights from
      a seed: SpecEngine.generate == SpecEngine.ar_generate token for token on
      two 600-token prompts (padded to 640), and the kernel launch counts of
-     that run are exactly what the path implies.
+     that run are exactly what the path implies.  4: the bf16/f32 path;
+     4b: the int8 path, weights quantized by the port.
   5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
      draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
      agreement length (printed, not asserted: bf16 greedy can flip on ties).
-The last two lines are the kernels' JSON summary and the device JSON.
-Exits non-zero, printing no result, without CUDA.
+     5: the bf16 path; 5b: the int8 path.
+The last lines are the card's name and power limit, the kernels' JSON
+summary and the device JSON.  Exits non-zero, printing no result, without
+CUDA.
 """
 
 from __future__ import annotations
@@ -35,9 +47,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dflash_tpu_torch.cache.kv import quantize_rows
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
-from dflash_tpu_torch.kernels import _build, prefill_flash, verify_fused
+from dflash_tpu_torch.kernels import _build, matmul_q, prefill_flash, verify_fused
 from dflash_tpu_torch.models import dflash_draft, qwen3
+from dflash_tpu_torch.ops.linear import QTensor, dequantize
+from dflash_tpu_torch.quant import quantize_draft_params, quantize_target_params
 from dflash_tpu_torch.spec.engine import SpecEngine
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate; bf16 tensor-core and
@@ -45,8 +60,18 @@ from dflash_tpu_torch.spec.engine import SpecEngine
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# matmul_int8, either x dtype, f32 out: a bf16 or f32 value times an int8
+# value is exact in f32, so kernel and plain differ only in how the f32 sums
+# over K (up to 12288 terms) are ordered, and on the tensor cores (bf16 x,
+# S > 1) rounded.
+MM_TOL = dict(atol=1e-4, rtol=1e-5)
 
 NH, NKV, D = QWEN3_8B.num_attention_heads, QWEN3_8B.num_key_value_heads, QWEN3_8B.head_dim
+H, I, V = QWEN3_8B.hidden_size, QWEN3_8B.intermediate_size, QWEN3_8B.vocab_size
+PAD_TO = 512
+# (K, N) of every projection on the int8 path: wq/wo/draft fc, wk/wv,
+# gate/up, down, lm_head (N = V padded to PAD_TO).
+MM_SHAPES = ((H, NH * D), (H, NKV * D), (H, I), (I, H), (H, V))
 BLOCK = 16
 PROMPT_LEN, PROMPT_CAP = 600, 640
 PARITY_NEW, TIMING_NEW = 64, 128
@@ -103,43 +128,116 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 # phase 3
 # ---------------------------------------------------------------------------
 
-def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g) -> dict:
+def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g, int8: bool = False) -> dict:
+    """verify_fused at one shape; ``int8``: the int8-ctx branch (ctx K/V
+    quantized with the cache's quantize_rows, f32 scales per row and head)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    per_call = (2 * T * NKV * D + 2 * B * NH * D + 2 * B * NKV * D) * es
+    ctx_es = 1 if int8 else es
+    scale_bytes = 2 * NKV * 4 if int8 else 0  # per ctx row
+    per_call = 2 * T * NKV * D * ctx_es + T * scale_bytes + (2 * B * NH * D + 2 * B * NKV * D) * es
     n = copies_for(per_call)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    sets = [(randn(1, B, NH, D), randn(1, T, NKV, D), randn(1, T, NKV, D),
-             randn(1, B, NKV, D), randn(1, B, NKV, D)) for _ in range(n)]
+
+    def ctx():
+        k, v = randn(1, T, NKV, D), randn(1, T, NKV, D)
+        if not int8:
+            return k, None, v, None
+        (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+        return kq, ks, vq, vs
+
+    # (q, ctx_k, ctx_ks, ctx_v, ctx_vs, blk_k, blk_v)
+    sets = [(randn(1, B, NH, D), *ctx(), randn(1, B, NKV, D), randn(1, B, NKV, D)) for _ in range(n)]
     mask = torch.ones(B, B, dtype=torch.bool, device="cuda")
     if not all_true:
         mask = torch.tril(mask)
     scale = D ** -0.5
-    q, ck, cv, bk, bv = sets[0]
-    out = verify_fused.fused_ctx_block_attention(q, ck, None, cv, None, bk, bv, ctx_len, mask, scale)
-    ref = verify_fused.plain(q, ck, cv, bk, bv, ctx_len, mask, scale)
+
+    def kernel(s):
+        return verify_fused.fused_ctx_block_attention(*s[:5], s[5], s[6], ctx_len, mask, scale)
+
+    def plain(s):
+        return verify_fused.plain(s[0], s[1], s[3], s[5], s[6], ctx_len, mask, scale, s[2], s[4])
+
+    out, ref = kernel(sets[0]), plain(sets[0])
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
-    def sdpa_inputs(q, ck, cv, bk, bv):
+    def sdpa_inputs(q, ck, cks, cv, cvs, bk, bv):
+        if int8:  # dequantized beforehand: the yardstick reads q's dtype
+            ck = (ck.float() * cks[..., None]).to(dtype)
+            cv = (cv.float() * cvs[..., None]).to(dtype)
         k = torch.cat([ck[0, :ctx_len], bk[0]]).transpose(0, 1)[None]  # [1, n_kv, ctx+B, d]
         v = torch.cat([cv[0, :ctx_len], bv[0]]).transpose(0, 1)[None]
         m = torch.cat([torch.ones(B, ctx_len, dtype=torch.bool, device="cuda"), mask], dim=1)
         return q[0].transpose(0, 1)[None], k, v, m
 
     lib = [sdpa_inputs(*s) for s in sets]
-    ms = cuda_ms([lambda s=s: verify_fused.fused_ctx_block_attention(
-        s[0], s[1], None, s[2], None, s[3], s[4], ctx_len, mask, scale) for s in sets], 50)
-    plain_ms = cuda_ms([lambda s=s: verify_fused.plain(*s, ctx_len, mask, scale) for s in sets], 10)
+    ms = cuda_ms([lambda s=s: kernel(s) for s in sets], 50)
+    plain_ms = cuda_ms([lambda s=s: plain(s) for s in sets], 10)
     library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
         a[0], a[1], a[2], attn_mask=a[3], scale=scale, enable_gqa=True) for a in lib], 50)
-    nbytes = (2 * B * NH * D + 2 * ctx_len * NKV * D + 2 * B * NKV * D) * es + B * B
+    nbytes = ((2 * B * NH * D + 2 * B * NKV * D) * es + 2 * ctx_len * NKV * D * ctx_es
+              + ctx_len * scale_bytes + B * B)
     flops = 4 * NH * D * (B * ctx_len + int(mask.sum()))
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
-    return dict(kernel="verify_fused", dtype=str(dtype).split(".")[-1], B=B,
+    return dict(kernel="verify_fused_int8_ctx" if int8 else "verify_fused",
+                dtype=str(dtype).split(".")[-1], B=B,
                 mask="all_true" if all_true else "causal", T=T, ctx_len=ctx_len,
                 max_abs_err=err, tol=TOL[dtype], kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def int8pack_runs() -> bool:
+    """Whether the installed PyTorch runs torch._weight_int8pack_mm on CUDA
+    (a yardstick only; the port never calls it)."""
+    x = torch.zeros((1, 64), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((64, 64), dtype=torch.int8, device="cuda")
+    try:
+        torch._weight_int8pack_mm(x, w, torch.ones(64, dtype=torch.bfloat16, device="cuda"))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[kernel] torch._weight_int8pack_mm does not run on CUDA here: {str(e).splitlines()[0]}")
+        return False
+    return True
+
+
+def matmul_case(dtype, K: int, N: int, S: int, g, int8pack: bool) -> dict:
+    """matmul_int8 at one projection shape: x [S, K] in ``dtype``, int8
+    weight [K, N_pad] (N padded to PAD_TO, as quantize_target_params pads),
+    f32 out [S, N]."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    N_pad = -(-N // PAD_TO) * PAD_TO
+    nbytes = K * N_pad + 4 * N_pad + S * K * es + 4 * S * N
+    copies = copies_for(nbytes)
+    sets = []
+    for _ in range(copies):
+        x = torch.randn((S, K), generator=g, device="cuda").to(dtype)
+        q = torch.randint(-127, 128, (K, N_pad), generator=g, dtype=torch.int8, device="cuda")
+        sc = torch.rand((1, N_pad), generator=g, device="cuda") * (0.05 / 127) + 1e-5
+        sets.append((x, q, sc))
+    x, q, sc = sets[0]
+    out, ref = matmul_q.matmul_int8(x, q, sc, N), matmul_q.plain(x, q, sc, N)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, **MM_TOL)
+
+    iters = int(min(50, max(3, 2e11 / (S * K * N_pad))))
+    ms = cuda_ms([lambda s=s: matmul_q.matmul_int8(*s, N) for s in sets], iters)
+    plain_ms = cuda_ms([lambda s=s: matmul_q.plain(*s, N) for s in sets], max(2, iters // 5))
+    deq = [(s[0], dequantize(QTensor(s[1], s[2], N), dtype)) for s in sets]
+    library_ms = cuda_ms([lambda a=a: torch.mm(*a) for a in deq], iters)
+    del deq
+    int8pack_ms = None
+    if int8pack and dtype == torch.bfloat16:
+        packed = [(s[0], s[1][:, :N].t().contiguous(), s[2][0, :N].to(dtype)) for s in sets]
+        int8pack_ms = cuda_ms([lambda a=a: torch._weight_int8pack_mm(*a) for a in packed], iters)
+        del packed
+    b_ms, b_by = bound_ms(nbytes, 2 * S * K * N, dtype)
+    return dict(kernel="matmul_int8", dtype=str(dtype).split(".")[-1], S=S, K=K, N=N, N_pad=N_pad,
+                k_split=matmul_q.k_split(K, N_pad), max_abs_err=err, tol=MM_TOL, kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, library="torch.mm, weight dequantized to x's dtype",
+                int8pack_ms=int8pack_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def prefill_case(dtype, S: int, g) -> dict:
@@ -173,13 +271,21 @@ def prefill_case(dtype, S: int, g) -> dict:
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
-def build_engine(dtype, max_new: int) -> SpecEngine:
+def build_engine(dtype, max_new: int, int8: bool = False) -> SpecEngine:
+    """Qwen3-8B + a 1-layer draft, random weights from seeds 0/1; ``int8``:
+    the weights quantized by the port (consuming the float dicts) and the
+    int8 KV cache."""
     dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=BLOCK)
     assert dcfg.target_layer_ids == (18,)
     t_params = qwen3.init_params(0, QWEN3_8B, dtype, device="cuda")
     d_params = dflash_draft.init_params(1, dcfg, dtype, device="cuda")
+    if int8:
+        t_params = quantize_target_params(t_params, QWEN3_8B, PAD_TO)
+        d_params = quantize_draft_params(d_params, dcfg, PAD_TO)
+        assert isinstance(t_params["lm_head"], QTensor) and isinstance(d_params["fc"], QTensor)
     return SpecEngine(QWEN3_8B, dcfg, t_params, d_params, max_new_tokens=max_new,
-                      block_size=BLOCK, prompt_cap=PROMPT_CAP, prompt_bucket=128, device="cuda")
+                      block_size=BLOCK, prompt_cap=PROMPT_CAP, prompt_bucket=128, device="cuda",
+                      kv_quant=int8)
 
 
 def prompts() -> list:
@@ -189,40 +295,59 @@ def prompts() -> list:
 
 def reset_counts() -> None:
     verify_fused.fused_ctx_block_attention.launches = 0
+    verify_fused.fused_ctx_block_attention.launches_int8 = 0
     prefill_flash.flash_prefill_attention.launches = 0
+    matmul_q.matmul_int8.launches = 0
 
 
 def counts() -> dict:
     return {"verify_fused": verify_fused.fused_ctx_block_attention.launches,
-            "prefill_flash": prefill_flash.flash_prefill_attention.launches}
+            "verify_fused_int8_ctx": verify_fused.fused_ctx_block_attention.launches_int8,
+            "prefill_flash": prefill_flash.flash_prefill_attention.launches,
+            "matmul_int8": matmul_q.matmul_int8.launches}
 
 
-def parity_phase() -> dict:
+def path_name(int8: bool) -> str:
+    return "int8 path (int8 weights, kv_quant)" if int8 else "bf16/f32 path"
+
+
+def parity_phase(int8: bool = False) -> dict:
     t0 = time.perf_counter()
-    engine = build_engine(torch.float32, PARITY_NEW)
+    engine = build_engine(torch.float32, PARITY_NEW, int8)
     torch.cuda.synchronize()
-    log(f"[parity] f32 Qwen3-8B (L=36, H=4096) + 1-layer draft initialised in "
+    tag = "[parity-int8]" if int8 else "[parity]"
+    log(f"{tag} f32 Qwen3-8B (L=36, H=4096) + 1-layer draft, {path_name(int8)}, initialised in "
         f"{time.perf_counter() - t0:.1f} s, total_len={engine.total_len}")
     L = QWEN3_8B.num_hidden_layers
-    draft_layers = engine.dcfg.model.num_hidden_layers
+    Ld = engine.dcfg.model.num_hidden_layers
+    # matmul_int8 launches: a target forward (7 projections a layer) + its
+    # lm_head; a draft context append (fc, then wk and wv a layer); a draft
+    # forward (7 a layer) + the lm_head on its rows
+    target_fwd, draft_append, draft_fwd = 7 * L + 1, 1 + 2 * Ld, 7 * Ld + 1
     reset_counts()
-    expected = {"verify_fused": 0, "prefill_flash": 0}
+    expected = dict.fromkeys(counts(), 0)
     for i, prompt in enumerate(prompts()):
         spec = engine.generate(prompt, temperature=0.0)
         ar = engine.ar_generate(prompt, temperature=0.0)
         n_cycles = len(spec.acceptance_lengths)
         expected["prefill_flash"] += 2 * L
-        expected["verify_fused"] += n_cycles * (L + draft_layers) + PARITY_NEW * L
+        expected["verify_fused_int8_ctx" if int8 else "verify_fused"] += (n_cycles + PARITY_NEW) * L
+        expected["verify_fused"] += n_cycles * Ld  # the draft's float context cache
+        if int8:
+            expected["matmul_int8"] += (target_fwd + draft_append  # spec prefill
+                                        + n_cycles * (draft_append + draft_fwd + target_fwd)
+                                        + (1 + PARITY_NEW) * target_fwd)  # AR prefill + steps
         gen = spec.output_ids[0, PROMPT_LEN:]
         assert gen.size > 0 and gen.min() >= 0 and gen.max() < QWEN3_8B.vocab_size
-        log(f"[parity] prompt {i}: spec {spec.num_output_tokens} tokens in {n_cycles} cycles, "
+        log(f"{tag} prompt {i}: spec {spec.num_output_tokens} tokens in {n_cycles} cycles, "
             f"AR {ar.num_output_tokens} tokens; spec == AR: "
             f"{np.array_equal(spec.output_ids, ar.output_ids)}")
         np.testing.assert_array_equal(spec.output_ids, ar.output_ids)
     got = counts()
-    log(f"[parity] launches {json.dumps(got)} expected {json.dumps(expected)}")
+    log(f"{tag} launches {json.dumps(got)} expected {json.dumps(expected)}")
     assert got == expected, (got, expected)
-    assert all(v > 0 for v in got.values())
+    path_kernels = ["verify_fused", "prefill_flash"] + (["verify_fused_int8_ctx", "matmul_int8"] if int8 else [])
+    assert all(got[k] > 0 for k in path_kernels), got
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -236,8 +361,8 @@ def agreement(a: np.ndarray, b: np.ndarray) -> int:
     return int(diff[0]) if diff.size else n
 
 
-def timing_phase() -> dict:
-    engine = build_engine(torch.bfloat16, TIMING_NEW)
+def timing_phase(int8: bool = False) -> dict:
+    engine = build_engine(torch.bfloat16, TIMING_NEW, int8)
     ps = prompts()
     forced = make_forced_acc(TIMING_NEW, BLOCK, REF_TAU)
     engine.generate(ps[0])  # warm-up: cuBLAS heuristics, allocator
@@ -260,6 +385,7 @@ def timing_phase() -> dict:
         "spec_forced_tau": float(np.mean([t for r in runs["spec_forced"] for t in r.acceptance_lengths])),
         "agreement_tokens": [agreement(s.output_ids, a.output_ids)
                              for s, a in zip(runs["spec"], runs["ar"])],
+        "path": path_name(int8),
         "new_tokens": TIMING_NEW,
         "spread_ms": {k: [round(r.time_per_output_token * 1e3, 4) for r in v] for k, v in runs.items()},
         "launches": counts(),
@@ -308,33 +434,53 @@ def main() -> int:
         for S in (128, 640, 2048):
             cases.append(prefill_case(dtype, S, g))
             log("[kernel] " + json.dumps(cases[-1]))
+    int8pack = int8pack_runs()
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, all_true in ((16, False), (16, True), (1, False)):
+            for ctx_len in (0, 1, 700, T - 16):
+                cases.append(verify_case(dtype, B, all_true, ctx_len, T, g, int8=True))
+                log("[kernel] " + json.dumps(cases[-1]))
+        for K, N in MM_SHAPES:
+            for S in (1, BLOCK, PROMPT_CAP):
+                cases.append(matmul_case(dtype, K, N, S, g, int8pack))
+                log("[kernel] " + json.dumps(cases[-1]))
 
-    # phase 4: exact parity through the kernels, f32
+    # phase 4: exact parity through the kernels, f32; 4b: the int8 path
     launches = parity_phase()
+    launches_int8 = parity_phase(int8=True)
 
-    # phase 5: timing, bf16
+    # phase 5: timing, bf16; 5b: the int8 path
     timing = timing_phase()
     log("[timing] " + json.dumps(timing))
+    timing_int8 = timing_phase(int8=True)
+    log("[timing-int8] " + json.dumps(timing_int8))
+    for key in ("ttft_spec_ms", "ttft_ar_ms", "ar_tpot_ms", "spec_tpot_ms", "spec_forced_tpot_ms"):
+        log(f"[timing] {key}: bf16 path {timing[key]:.3f}, int8 path {timing_int8[key]:.3f}")
 
     def pick(kernel, **match):
         return next(c for c in cases if c["kernel"] == kernel and all(c[k] == v for k, v in match.items()))
 
-    main_shapes = {
-        "verify_fused": pick("verify_fused", dtype="bfloat16", B=16, mask="causal", ctx_len=700),
-        "prefill_flash": pick("prefill_flash", dtype="bfloat16", S=640),
-    }
-    meta = {
-        "verify_fused": ("dflash_tpu_torch/kernels/csrc/verify_fused.cu",
-                         "dflash_tpu/kernels/verify_fused.py:219"),
-        "prefill_flash": ("dflash_tpu_torch/kernels/csrc/prefill_flash.cu",
-                          "dflash_tpu/kernels/prefill_flash.py:111"),
+    # name: (case at the main path's shape, source, TPU kernel replaced, launches)
+    verify_src = "dflash_tpu_torch/kernels/csrc/verify_fused.cu"
+    main = {
+        "verify_fused": (pick("verify_fused", dtype="bfloat16", B=16, mask="causal", ctx_len=700),
+                         verify_src, "dflash_tpu/kernels/verify_fused.py:219", launches["verify_fused"]),
+        "verify_fused_int8_ctx": (
+            pick("verify_fused_int8_ctx", dtype="bfloat16", B=16, mask="causal", ctx_len=700),
+            verify_src, "dflash_tpu/kernels/verify_fused.py:219", launches_int8["verify_fused_int8_ctx"]),
+        "prefill_flash": (pick("prefill_flash", dtype="bfloat16", S=640),
+                          "dflash_tpu_torch/kernels/csrc/prefill_flash.cu",
+                          "dflash_tpu/kernels/prefill_flash.py:111", launches["prefill_flash"]),
+        "matmul_int8": (pick("matmul_int8", dtype="bfloat16", S=BLOCK, K=H, N=I),
+                        "dflash_tpu_torch/kernels/csrc/matmul_q.cu",
+                        "dflash_tpu/kernels/matmul_q.py:56", launches_int8["matmul_int8"]),
     }
     summary = [{
-        "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-        "launches": launches[name], "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": n, "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
-    } for name, c in main_shapes.items()]
+    } for name, (c, src, replaces, n) in main.items()]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

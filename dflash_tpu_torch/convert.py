@@ -4,7 +4,11 @@
 as numpy arrays (``jax.tree.map(np.asarray, params)``), into the port's dict
 of tensors with the same keys and layouts, on a given device and dtype.  After
 that both packages compute the same function.  bf16 arrays (numpy dtype
-``bfloat16`` from ``ml_dtypes``) are carried bit for bit.
+``bfloat16`` from ``ml_dtypes``) are carried bit for bit.  An int8 weight
+node of the JAX pytree (its ``QTensor``, which ``jax.tree.map`` keeps, with
+numpy ``q`` and ``scale`` inside) becomes the port's ``QTensor``: it is
+recognised by its ``q`` / ``scale`` / ``n`` attributes, and its int8 values
+and f32 scales keep their dtypes.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from dflash_tpu_torch.ops.linear import QTensor
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -29,7 +35,9 @@ def params_from_numpy(tree, device: str | torch.device = "cuda", dtype: Optional
     (cast to ``dtype`` when given)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("q", "scale", "n")):
+        return QTensor(params_from_numpy(tree.q, device), params_from_numpy(tree.scale, device), tree.n)
     if not isinstance(tree, np.ndarray):
-        raise TypeError(f"expected numpy arrays (int8 QTensor weights are not ported yet), got {type(tree)}")
+        raise TypeError(f"expected numpy arrays or int8 weight nodes, got {type(tree)}")
     t = _tensor(tree)
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)

@@ -13,6 +13,12 @@
 // the exponential, so a row whose tile is fully masked adds nothing (an
 // all-masked row would otherwise see exp(-1e30 - -1e30) = 1).  Key rows past
 // the valid range are zero-filled in shared memory, never read from the cache.
+//
+// Key rows may be int8 (the quantized ctx cache): they are staged as exact
+// floats, and each key's per-row scales enter as the score multiplier (its
+// key scale times the softmax scale) and the value weight (its value scale,
+// applied to p after l has summed the unscaled p).  Unscaled rows pass the
+// softmax scale and 1.0, which leaves every number as it was.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +54,16 @@ __device__ __forceinline__ void unpack16(const __nv_bfloat16* src, float* dst) {
     dst[2 * i] = __uint_as_float(w[i] << 16);
     dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+// 16 int8 values -> exact floats.
+__device__ __forceinline__ void unpack16(const int8_t* src, float* dst) {
+  const int4 raw = *reinterpret_cast<const int4*>(src);
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) dst[4 * i + b] = (float)(int8_t)(w[i] >> (8 * b));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -106,10 +122,11 @@ struct RowState {
 
 // One flash step over the key tile in shared memory.  valid(r, j): may local
 // query row r attend key j of the tile (j < 32)?  It must be false for keys
-// past the tile's valid rows.
+// past the tile's valid rows.  kmul / vmul: this lane's key's score multiplier
+// and value weight (see the top of this file).
 template <int D, int RQ, int RPW, typename Valid>
 __device__ __forceinline__ void attend_tile(const Smem<D, RQ>& sm, RowState<D, RPW>& st,
-                                            float scale, Valid valid) {
+                                            float kmul, float vmul, Valid valid) {
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 5) * RPW;
   float s[RPW];
@@ -125,11 +142,12 @@ __device__ __forceinline__ void attend_tile(const Smem<D, RQ>& sm, RowState<D, R
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     const bool ok = valid(row0 + r, lane);
-    const float sr = ok ? s[r] * scale : kNeg;
+    const float sr = ok ? s[r] * kmul : kNeg;
     const float m_new = fmaxf(st.m[r], warp_max(sr));
     const float alpha = expf(st.m[r] - m_new);
     p[r] = ok ? expf(sr - m_new) : 0.f;
     st.l[r] = st.l[r] * alpha + warp_sum(p[r]);
+    p[r] *= vmul;
     st.m[r] = m_new;
 #pragma unroll
     for (int c = 0; c < D / 32; ++c) st.acc[r][c] *= alpha;

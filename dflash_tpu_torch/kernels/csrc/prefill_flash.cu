@@ -40,7 +40,7 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, D, kKeyTile, D + 1>(sm.k, k + t0 * kv_stride + hk * D, nk, kv_stride);
     load_rows<T, D, kKeyTile, D>(sm.v, v + t0 * kv_stride + hk * D, nk, kv_stride);
     __syncthreads();
-    attend_tile<D, RQ, kRowsPerWarp>(sm, st, scale,
+    attend_tile<D, RQ, kRowsPerWarp>(sm, st, scale, 1.f,
                                      [&](int r, int j) { return j < nk && t0 + j <= row0 + r; });
   }
 

@@ -11,7 +11,9 @@ written at their absolute positions.
 The draft attention (ctx rows < ctx_len plus every block row) goes through
 the ``verify_fused`` kernel with an all-true block mask: the same keys that
 JAX's ``gqa_attention`` attends over the concatenation [ctx cache | block],
-without the concatenation copy.
+without the concatenation copy.  ``fc`` and the layer weights may be int8
+``QTensor``s (``quant/quantize.py``); the context cache stays in the
+activation dtype even when the target's cache is int8, as in JAX.
 """
 
 from __future__ import annotations

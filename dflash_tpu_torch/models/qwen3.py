@@ -8,9 +8,11 @@ residual adds, before the final norm) is captured and concatenated along the
 feature axis, in ``tap_ids`` order.
 
 Attention goes through the port's kernels: ``forward_prefill`` through
-``prefill_flash`` and ``forward_block_candidates`` through ``verify_fused``.
-On CPU tensors those run their plain versions.  The MoE MLP is not ported
-yet (ROADMAP.md).
+``prefill_flash`` and ``forward_block_candidates`` through ``verify_fused``
+(its int8 branch when the context cache is a ``QuantKVCache``).  Weights may
+be int8 ``QTensor`` stacks (``quant/quantize.py``); ``linear`` then runs
+``matmul_int8``.  On CPU tensors the kernels run their plain versions.  The
+MoE MLP is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dflash_tpu_torch.cache.kv import KVCache
+from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache
 from dflash_tpu_torch.core.config import ModelConfig
 from dflash_tpu_torch.kernels.prefill_flash import flash_prefill_attention
 from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention
@@ -114,6 +116,7 @@ def _dense_mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(params: dict, l: int) -> dict:
+    """Layer ``l`` of every stack (a QTensor stack gives that layer's QTensor)."""
     return {name: w[l] for name, w in params["layers"].items()}
 
 
@@ -196,7 +199,7 @@ def forward_block_candidates(
     cfg: ModelConfig,
     embeds: torch.Tensor,  # [C, B, H]: C candidate blocks
     positions: torch.Tensor,  # [C, B] absolute positions (identical rows)
-    ctx_kv: KVCache,  # committed-context cache, batch 1
+    ctx_kv: AnyKVCache,  # committed-context cache (bf16/f32 or int8), batch 1
     ctx_len: int,  # frontier: ctx rows < ctx_len are valid
     tap_ids: Tuple[int, ...] = (),
     blk_mask: Optional[torch.Tensor] = None,  # [B, B] override of the causal block mask
@@ -217,8 +220,10 @@ def forward_block_candidates(
     for l in range(cfg.num_hidden_layers):
         p = _layer(params, l)
         q, k, v = _qkv(p, cfg, hidden, cos, sin)
+        quant = isinstance(ctx_kv, QuantKVCache)
         attn = fused_ctx_block_attention(
-            q, ctx_kv.k[l], None, ctx_kv.v[l], None, k, v, ctx_len, blk_mask, scale
+            q, ctx_kv.k[l], ctx_kv.k_scale[l] if quant else None,
+            ctx_kv.v[l], ctx_kv.v_scale[l] if quant else None, k, v, ctx_len, blk_mask, scale,
         )
         hidden = _finish_layer(p, cfg, hidden, attn)
         if l in tap_ids:

@@ -1,6 +1,6 @@
 """Grouped-query attention with boolean masks: the plain PyTorch versions of
-the port's two attention kernels.  Port of ``gqa_attention`` and of the
-bf16/f32 branch of ``gqa_attention_quant_ctx_plus_block`` in
+the port's two attention kernels.  Port of ``gqa_attention`` and of
+``gqa_attention_quant_ctx_plus_block`` (bf16/f32 and int8 ctx) in
 ``dflash_tpu/ops/attention.py``.
 
 Query head ``h`` reads kv head ``h // g`` (JAX's ``q.reshape(..., n_kv, g, d)``).
@@ -40,10 +40,10 @@ def gqa_attention(
 
 def gqa_attention_quant_ctx_plus_block(
     q: torch.Tensor,  # [C, B, n_heads, d]: C candidates x B block queries
-    ctx_kq: torch.Tensor,  # [1, T, n_kv, d] shared ctx keys (bf16/f32)
-    ctx_ks: Optional[torch.Tensor],  # int8 scales: not ported yet, must be None
+    ctx_kq: torch.Tensor,  # [1, T, n_kv, d] shared ctx keys: int8, or bf16/f32 when unscaled
+    ctx_ks: Optional[torch.Tensor],  # [1, T, n_kv] f32 per-row key scales; None = unquantized
     ctx_vq: torch.Tensor,  # [1, T, n_kv, d]
-    ctx_vs: Optional[torch.Tensor],
+    ctx_vs: Optional[torch.Tensor],  # [1, T, n_kv]; None = unquantized
     blk_k: torch.Tensor,  # [C, B, n_kv, d] per-candidate block keys
     blk_v: torch.Tensor,  # [C, B, n_kv, d]
     ctx_mask: torch.Tensor,  # [T] bool: valid committed rows (< frontier)
@@ -52,20 +52,27 @@ def gqa_attention_quant_ctx_plus_block(
 ) -> torch.Tensor:
     """Shared-context + per-candidate-block attention, merged by log-sum-exp.
     Mathematically the softmax over the concatenation [ctx rows | block rows].
+    int8 ctx rows are exact in q's dtype; their key scales multiply the scores
+    and their value scales the weights before the value product.
     Returns [C, B, n_heads * d]."""
-    if ctx_ks is not None or ctx_vs is not None:
-        raise NotImplementedError("int8 ctx scales are not ported to dflash_tpu_torch yet")
     Cc, B, n_heads, d = q.shape
     n_kv = ctx_kq.shape[2]
     groups = n_heads // n_kv
     qg = q.reshape(Cc, B, n_kv, groups, d).float()
 
     # ctx part: cache rows shared across candidates (batch dim 1)
-    s1 = torch.einsum("cqkgd,skd->ckgqs", qg, ctx_kq[0].float()) * scale
+    s1 = torch.einsum("cqkgd,skd->ckgqs", qg, ctx_kq[0].float())
+    if ctx_ks is not None:
+        ks = ctx_ks[0].movedim(-1, 0)[None, :, None, None, :]  # [1, n_kv, 1, 1, T]
+        s1 = s1 * (ks * scale)
+    else:
+        s1 = s1 * scale
     s1 = torch.where(ctx_mask[None, None, None, None, :], s1, _NEG_INF)
     m1 = s1.amax(dim=-1)  # [C, n_kv, g, B]
     e1 = torch.exp(s1 - m1[..., None])
     l1 = e1.sum(dim=-1)
+    if ctx_vs is not None:
+        e1 = e1 * ctx_vs[0].movedim(-1, 0)[None, :, None, None, :]
     o1 = torch.einsum("ckgqs,skd->ckgqd", e1.to(q.dtype).float(), ctx_vq[0].float())
 
     # block part: per-candidate rows

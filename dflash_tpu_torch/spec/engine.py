@@ -19,8 +19,15 @@ Cycle anatomy:
      posterior; commit accepted prefix + bonus token and their K/V rows
   6. write the verify's tap features at the frontier; advance; stop check
 
-Not ported yet (they raise): sampling filters, chunked / prefix prefill, the
-int8 KV cache, meshes and sequence sharding.
+``kv_quant=True`` keeps the target's cache in int8 with per-row scales
+(``QuantKVCache``): prompt K/V are quantized as they are written, verify and
+AR commits quantize their rows, and attention reads the cache through the int8
+branch of ``verify_fused``.  The draft's context cache stays in the activation
+dtype.  Int8 weights need nothing from the engine: ``linear`` dispatches on
+the weight type.
+
+Not ported yet (they raise): sampling filters, chunked / prefix prefill,
+meshes and sequence sharding.
 """
 
 from __future__ import annotations
@@ -32,7 +39,14 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from dflash_tpu_torch.cache.kv import KVCache, init_kv_cache, update_any, write_prompt_rows
+from dflash_tpu_torch.cache.kv import (
+    AnyKVCache,
+    KVCache,
+    init_kv_cache,
+    init_quant_kv_cache,
+    update_any,
+    write_prompt_rows,
+)
 from dflash_tpu_torch.core.config import DraftConfig, ModelConfig
 from dflash_tpu_torch.models import dflash_draft, qwen3
 from dflash_tpu_torch.ops.sampling import acceptance_length, sample
@@ -49,7 +63,7 @@ class LoopState:
     cycle_idx: int
     acc_trace: list  # tau per cycle
     generator: Optional[torch.Generator]  # sampling at temperature > 0
-    t_kv: KVCache
+    t_kv: AnyKVCache
     d_kv: KVCache
     features: torch.Tensor  # [1, T, n_taps * H] target tap features per position
 
@@ -74,12 +88,17 @@ def _sync(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 def _prefill_target(t_params, tcfg: ModelConfig, input_ids: torch.Tensor, prompt_len: int,
-                    tap_ids, total_len: int):
+                    tap_ids, total_len: int, kv_quant: bool):
     """Target prefill (one cache-free forward): returns (t_kv, taps [1,P,F],
-    last hidden row [1,1,H])."""
+    last hidden row [1,1,H]).  The prompt K/V stay in the activation dtype
+    through the prefill and are quantized as they are written when
+    ``kv_quant``."""
     P = input_ids.shape[1]
     device = input_ids.device
-    t_kv = init_kv_cache(tcfg, 1, total_len, t_params["embed"].dtype, device)
+    if kv_quant:
+        t_kv = init_quant_kv_cache(tcfg, 1, total_len, device)
+    else:
+        t_kv = init_kv_cache(tcfg, 1, total_len, t_params["embed"].dtype, device)
     positions = torch.arange(P, device=device)[None, :]
     res = qwen3.forward_prefill(
         t_params, tcfg, qwen3.embed(t_params, input_ids), positions, tap_ids=tap_ids
@@ -98,13 +117,13 @@ def _init_output_ids(input_ids: torch.Tensor, prompt_len: int, first_token: torc
 
 def _prefill_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int,
                   temperature: float, generator, *, tcfg: ModelConfig, dcfg: DraftConfig,
-                  total_len: int) -> LoopState:
+                  total_len: int, kv_quant: bool = False) -> LoopState:
     """Target prefill + first-token sample + draft context prefill."""
     P = input_ids.shape[1]
     device = input_ids.device
     dtype = t_params["embed"].dtype
     t_kv, taps, last_hidden = _prefill_target(
-        t_params, tcfg, input_ids, prompt_len, dcfg.target_layer_ids, total_len
+        t_params, tcfg, input_ids, prompt_len, dcfg.target_layer_ids, total_len, kv_quant
     )
     first_token = sample(qwen3.lm_head(t_params, last_hidden), temperature, generator)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, dcfg.mask_token_id)
@@ -207,12 +226,14 @@ class ARState:
     start: int
     done: bool
     generator: Optional[torch.Generator]
-    t_kv: KVCache
+    t_kv: AnyKVCache
 
 
 def _ar_prefill(t_params, input_ids: torch.Tensor, prompt_len: int, temperature: float,
-                generator, *, tcfg: ModelConfig, total_len: int, mask_token_id: int) -> ARState:
-    t_kv, _, last_hidden = _prefill_target(t_params, tcfg, input_ids, prompt_len, (), total_len)
+                generator, *, tcfg: ModelConfig, total_len: int, mask_token_id: int,
+                kv_quant: bool = False) -> ARState:
+    t_kv, _, last_hidden = _prefill_target(t_params, tcfg, input_ids, prompt_len, (), total_len,
+                                           kv_quant)
     first_token = sample(qwen3.lm_head(t_params, last_hidden), temperature, generator)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, mask_token_id)
     return ARState(output_ids, prompt_len, False, generator, t_kv)
@@ -255,8 +276,9 @@ class SpecEngine:
 
     Prompts are padded to ``prompt_bucket`` multiples and the token / cache
     buffers are sized ``prompt_cap + max_new_tokens + block + 1``.  The
-    parameters must already live on ``device``; the default is the card, and
-    building on a machine without one raises.
+    parameters (float, or int8 from ``dflash_tpu_torch.quant``) must already
+    live on ``device``; the default is the card, and building on a machine
+    without one raises.  ``kv_quant=True`` keeps the target's KV cache in int8.
     """
 
     def __init__(
@@ -277,9 +299,9 @@ class SpecEngine:
         mesh=None,
         seq_axis: Optional[str] = None,
     ):
-        if kv_quant or prefill_chunk is not None or mesh is not None or seq_axis is not None:
+        if prefill_chunk is not None or mesh is not None or seq_axis is not None:
             raise NotImplementedError(
-                "kv_quant, prefill_chunk, mesh and seq_axis are not ported to dflash_tpu_torch yet"
+                "prefill_chunk, mesh and seq_axis are not ported to dflash_tpu_torch yet"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -297,6 +319,7 @@ class SpecEngine:
         self.prompt_cap = int(prompt_cap)
         self.prompt_bucket = int(prompt_bucket)
         self.stop_token_ids = tuple(int(s) for s in stop_token_ids)
+        self.kv_quant = bool(kv_quant)
         self.total_len = self.prompt_cap + self.max_new_tokens + self.block_size + 1
 
     def _pad_prompt(self, input_ids: np.ndarray) -> tuple[torch.Tensor, int, int]:
@@ -361,7 +384,7 @@ class SpecEngine:
         state = _prefill_impl(
             self.t_params, self.d_params, ids, prompt_len, temperature,
             self._generator(temperature, seed), tcfg=self.tcfg, dcfg=self.dcfg,
-            total_len=self.total_len,
+            total_len=self.total_len, kv_quant=self.kv_quant,
         )
         _sync(self.device)
         ttft = time.perf_counter() - t0
@@ -391,6 +414,7 @@ class SpecEngine:
         state = _ar_prefill(
             self.t_params, ids, prompt_len, temperature, self._generator(temperature, seed),
             tcfg=self.tcfg, total_len=self.total_len, mask_token_id=self.dcfg.mask_token_id,
+            kv_quant=self.kv_quant,
         )
         _sync(self.device)
         ttft = time.perf_counter() - t0

@@ -1,10 +1,12 @@
 #!/usr/bin/env python
 """Where the PyTorch/CUDA port's decode time goes on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_decode.py
+    python3 scripts/torch_profile_decode.py           # the bf16 path
+    python3 scripts/torch_profile_decode.py --int8    # int8 weights + kv_quant
 
 Builds the bf16 Qwen3-8B engine of chip_smoke.py (full width and depth,
-random weights from a seed, 1-layer draft, a 600-token prompt padded to 640),
+random weights from a seed, 1-layer draft, a 600-token prompt padded to 640;
+with ``--int8`` the weights quantized by the port and the int8 KV cache),
 warms it up, then for AR decode and spec decode (the random draft's own
 acceptance) prints one JSON line each with: the decode's wall ms per token
 without the profiler (two runs); and, for one more decode under
@@ -31,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config  # noqa: E402
 from dflash_tpu_torch.models import dflash_draft, qwen3  # noqa: E402
+from dflash_tpu_torch.quant import quantize_draft_params, quantize_target_params  # noqa: E402
 from dflash_tpu_torch.spec import engine as eng  # noqa: E402
 
 NEW_TOKENS = 32
@@ -82,30 +85,37 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device", file=sys.stderr)
         return 1
+    int8 = "--int8" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=16)
+    t_params = qwen3.init_params(0, QWEN3_8B, torch.bfloat16)
+    d_params = dflash_draft.init_params(1, dcfg, torch.bfloat16)
+    if int8:
+        t_params = quantize_target_params(t_params, QWEN3_8B)
+        d_params = quantize_draft_params(d_params, dcfg)
     e = eng.SpecEngine(
-        QWEN3_8B, dcfg, qwen3.init_params(0, QWEN3_8B, torch.bfloat16),
-        dflash_draft.init_params(1, dcfg, torch.bfloat16), max_new_tokens=NEW_TOKENS,
-        block_size=16, prompt_cap=640, prompt_bucket=128,
+        QWEN3_8B, dcfg, t_params, d_params, max_new_tokens=NEW_TOKENS,
+        block_size=16, prompt_cap=640, prompt_bucket=128, kv_quant=int8,
     )
     prompt = np.random.default_rng(0).integers(1, QWEN3_8B.vocab_size - 2, size=(1, 600))
     ids, plen, _ = e._pad_prompt(prompt)
     max_length = plen + NEW_TOKENS
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(torch.cuda.get_device_name(0), "int8 path" if int8 else "bf16 path", flush=True)
+    tag = "-int8" if int8 else ""
     ar = measure(
-        "ar",
+        "ar" + tag,
         lambda: eng._ar_prefill(e.t_params, ids, plen, 0.0, None, tcfg=e.tcfg,
-                                total_len=e.total_len, mask_token_id=dcfg.mask_token_id),
+                                total_len=e.total_len, mask_token_id=dcfg.mask_token_id,
+                                kv_quant=int8),
         lambda st: eng._ar_decode(e.t_params, st, max_length, 0.0, tcfg=e.tcfg,
                                   stop_token_ids=frozenset()),
         lambda: e.ar_generate(prompt),
     )
     print(json.dumps(ar), flush=True)
     spec = measure(
-        "spec",
+        "spec" + tag,
         lambda: eng._prefill_impl(e.t_params, e.d_params, ids, plen, 0.0, None, tcfg=e.tcfg,
-                                  dcfg=dcfg, total_len=e.total_len),
+                                  dcfg=dcfg, total_len=e.total_len, kv_quant=int8),
         lambda st: eng._decode_impl(e.t_params, e.d_params, st, max_length, 0.0, tcfg=e.tcfg,
                                     dcfg=dcfg, block_size=16, stop_token_ids=frozenset(),
                                     max_cycles=NEW_TOKENS),

@@ -121,7 +121,10 @@ def test_unported_options_raise():
         engine.generate(np.asarray([[1, 2]]), top_k=5)
     with pytest.raises(NotImplementedError):
         SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
-                   max_new_tokens=4, kv_quant=True, device="cpu")
+                   max_new_tokens=4, prefill_chunk=16, device="cpu")
+    # kv_quant is ported (tests/test_torch_quant.py)
+    assert SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
+                      max_new_tokens=4, kv_quant=True, device="cpu").kv_quant
 
 
 @pytest.mark.parametrize("block_size,prompt_len,stop", [(8, 9, ()), (4, 16, tuple(range(0, 128)))])

@@ -102,13 +102,17 @@ def test_gqa_attention_ctx_plus_block(C, ctx_len):
 
 
 def test_ctx_plus_block_rejects_int8_scales():
-    z = torch.zeros(1, 4, 1, 16)
-    with pytest.raises(NotImplementedError):
+    """The int8 ctx is ported (held against JAX in tests/test_torch_quant.py);
+    scales that do not match the cache's [1, T, n_kv] rows are rejected."""
+    z = torch.zeros(1, 4, 1, 16, dtype=torch.int8)
+    args = (torch.zeros(1, 2, 1, 16), torch.zeros(1, 2, 1, 16), torch.ones(4, dtype=torch.bool),
+            torch.ones(2, 2, dtype=torch.bool), 0.25)
+    out = tattn.gqa_attention_quant_ctx_plus_block(
+        torch.zeros(1, 2, 1, 16), z, torch.ones(1, 4, 1), z, torch.ones(1, 4, 1), *args)
+    assert out.shape == (1, 2, 16) and torch.isfinite(out).all()
+    with pytest.raises(RuntimeError):
         tattn.gqa_attention_quant_ctx_plus_block(
-            torch.zeros(1, 2, 1, 16), z, torch.ones(1, 4, 1), z, torch.ones(1, 4, 1),
-            torch.zeros(1, 2, 1, 16), torch.zeros(1, 2, 1, 16), torch.ones(4, dtype=torch.bool),
-            torch.ones(2, 2, dtype=torch.bool), 0.25,
-        )
+            torch.zeros(1, 2, 1, 16), z, torch.ones(1, 3, 1), z, torch.ones(1, 3, 1), *args)
 
 
 def test_sample_greedy():
