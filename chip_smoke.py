@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Two paths are driven: the bf16/f32 path (float weights and KV cache) and
-the int8 serving path (int8 weights from quantize_target_params /
-quantize_draft_params, and kv_quant=True).
+Four paths are driven: the bf16/f32 path (float weights and KV cache), the
+int8 serving path (int8 weights from quantize_target_params /
+quantize_draft_params, and kv_quant=True), the attn_impl="pallas" path
+(verify and AR step through qwen3.forward and the frontier-bounded
+verify_attention kernel) and filtered sampling (generate(top_k, top_p),
+whose exact keep set comes from the filter_stats kernel).
 
 Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
@@ -20,15 +23,30 @@ Phases, each fatal on failure (nothing is caught):
      beforehand for the int8 ctx), torch.mm with the weight dequantized
      beforehand to x's dtype, and torch._weight_int8pack_mm where the
      installed PyTorch runs it on CUDA.
+     Then filter_stats (x f32 [N, 151,936], N in {1, 16}, T in {16, 32, 64}
+     thresholds from the rows' own values plus 0xFFFFFFFF and a pattern below
+     the row minimum; counts exact, the rest within 2e-6; no library call
+     computes these outputs); the keep sets of filtered_logits_topk_topp at
+     full vocabulary, with the kernel's stats and with the plain version's,
+     against a full-sort f64 keep rule; and verify_attention (bf16 and f32,
+     B in {16, 1}, start in {0, 1, 700, T - 16}, T = 1024, plus NaN K/V past
+     the frontier; yardstick scaled_dot_product_attention over the valid
+     rows with the offset causal mask).
   4. exact parity, f32, Qwen3-8B at full width and depth, random weights from
      a seed: SpecEngine.generate == SpecEngine.ar_generate token for token on
      two 600-token prompts (padded to 640), and the kernel launch counts of
      that run are exactly what the path implies.  4: the bf16/f32 path;
-     4b: the int8 path, weights quantized by the port.
+     4b: the int8 path, weights quantized by the port; 4c: the
+     attn_impl="pallas" engine on phase 4's weights; 4d: two filtered
+     requests whose keep set is the argmax alone (temperature 1.5, top_k 1;
+     temperature 2, top_k 2, top_p 1e-6) on phase 4's engine, which must
+     give the greedy tokens with exactly 1 + n_cycles filter_stats launches.
   5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
      draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
      agreement length (printed, not asserted: bf16 greedy can flip on ties).
-     5: the bf16 path; 5b: the int8 path.
+     5: the bf16 path; 5c: the attn_impl="pallas" path on the same weights,
+     and filtered spec decoding (temperature 0.8, top_k 50, top_p 0.95) on
+     the default path; 5b: the int8 path.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the device JSON.  Exits non-zero, printing no result, without
 CUDA.
@@ -49,8 +67,9 @@ import torch.nn.functional as F
 
 from dflash_tpu_torch.cache.kv import quantize_rows
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
-from dflash_tpu_torch.kernels import _build, matmul_q, prefill_flash, verify_fused
+from dflash_tpu_torch.kernels import _build, attention, filter_stats, matmul_q, prefill_flash, verify_fused
 from dflash_tpu_torch.models import dflash_draft, qwen3
+from dflash_tpu_torch.ops import sampling
 from dflash_tpu_torch.ops.linear import QTensor, dequantize
 from dflash_tpu_torch.quant import quantize_draft_params, quantize_target_params
 from dflash_tpu_torch.spec.engine import SpecEngine
@@ -65,6 +84,14 @@ TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=2e-2,
 # over K (up to 12288 terms) are ordered, and on the tensor cores (bf16 x,
 # S > 1) rounded.
 MM_TOL = dict(atol=1e-4, rtol=1e-5)
+# filter_stats: counts exact; lse, row_min and mass_gt within 2e-6, f32 sums
+# of 151,936 terms taken in another order (per-block partials merged by
+# rescaling, against torch.logsumexp and a masked sum of exp(x - lse)).
+FS_ATOL = 2e-6
+# filtered sampling's keep-set check: top-p tokens whose f64 mass-before lies
+# this close to p may fall either way under f32 masses, and are not compared.
+P_MARGIN = 2e-6
+KEEP_CASES = ((1, 1.0), (20, 1.0), (1000, 1.0), (0, 0.9), (50, 0.95), (0, 0.999))
 
 NH, NKV, D = QWEN3_8B.num_attention_heads, QWEN3_8B.num_key_value_heads, QWEN3_8B.head_dim
 H, I, V = QWEN3_8B.hidden_size, QWEN3_8B.intermediate_size, QWEN3_8B.vocab_size
@@ -76,6 +103,8 @@ BLOCK = 16
 PROMPT_LEN, PROMPT_CAP = 600, 640
 PARITY_NEW, TIMING_NEW = 64, 128
 REF_TAU = 7.46
+PALLAS_T = 1024  # the timing engine's total_len (785) rounded up to 512 on the "pallas" path
+FILTERED = dict(temperature=0.8, top_k=50, top_p=0.95)
 
 
 def log(msg: str) -> None:
@@ -267,14 +296,111 @@ def prefill_case(dtype, S: int, g) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def filter_stats_case(N: int, T: int, g) -> dict:
+    """filter_stats at x f32 [N, V], T thresholds drawn from the rows' own
+    values, the last two replaced by 0xFFFFFFFF (padding) and a pattern below
+    the row minimum."""
+    nbytes = N * V * 4 + N * T * 4 + N * T * 12 + N * 8
+    sets = []
+    for _ in range(copies_for(N * V * 4)):
+        x = torch.randn((N, V), generator=g, device="cuda") * 3.0
+        bits = filter_stats.ordered_bits(x)
+        thr = torch.gather(bits, 1, torch.randint(0, V, (N, T), generator=g, device="cuda"))
+        thr[:, -1] = 0xFFFFFFFF
+        thr[:, -2] = bits.amin(dim=1) - 1
+        sets.append((x, thr))
+    out, ref = filter_stats.filter_stats(*sets[0]), filter_stats.plain(*sets[0])
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), "filter_stats counts differ"
+    err = max((a - b).abs().max().item() for a, b in zip(out[2:], ref[2:]))
+    for a, b in zip(out[2:], ref[2:]):
+        torch.testing.assert_close(a, b, atol=FS_ATOL, rtol=0)
+    ms = cuda_ms([lambda s=s: filter_stats.filter_stats(*s) for s in sets], 50)
+    plain_ms = cuda_ms([lambda s=s: filter_stats.plain(*s) for s in sets], 5)
+    # ~3 operations per element and threshold (two compares, a masked add),
+    # ~5 per element besides (max, min, exp, sum, the bits), at the f32 rate
+    b_ms, b_by = bound_ms(nbytes, N * V * (3 * T + 5), torch.float32)
+    return dict(kernel="filter_stats", N=N, T=T, V=V, max_abs_err=err, tol=dict(atol=FS_ATOL),
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+                library="none: no one PyTorch call computes the five outputs",
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def keep_set_case(top_k: int, top_p: float, g) -> dict:
+    """filtered_logits_topk_topp on 16 rows at temperature 0.8, with the
+    kernel's stats and with the plain version's, against a full-sort f64
+    keep rule (rank < k, value ties straddling rank k kept, and mass before
+    the token < p)."""
+    temp = 0.8
+    logits = torch.randn((BLOCK, V), generator=g, device="cuda") * 3.0
+    before = filter_stats.filter_stats.launches
+    kernel_keep = torch.isfinite(sampling.filtered_logits_topk_topp(logits, temp, top_k, top_p,
+                                                                    sampling.TOPK_POOL))
+    passes = filter_stats.filter_stats.launches - before
+    plain_keep = torch.isfinite(sampling.filtered_logits_topk_topp(
+        logits, temp, top_k, top_p, sampling.TOPK_POOL, stats=filter_stats.plain))
+    svals, order = torch.sort((logits / temp).double(), dim=-1, descending=True, stable=True)
+    probs = torch.softmax(svals, dim=-1)
+    cum_before = torch.cumsum(probs, dim=-1) - probs
+    k_eff = V if top_k <= 0 else min(top_k, V)
+    keep_sorted = (svals >= svals[:, k_eff - 1:k_eff]) & (cum_before < top_p)
+    near_sorted = (cum_before - top_p).abs() < P_MARGIN if top_p < 1.0 else torch.zeros_like(keep_sorted)
+    want = torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
+    near = torch.zeros_like(near_sorted).scatter(1, order, near_sorted)
+    res = dict(kernel="keep_set", top_k=top_k, top_p=top_p, rows=BLOCK, temperature=temp,
+               kept_per_row=[int(c) for c in want.sum(dim=-1).tolist()],
+               stats_passes=passes, refinement_rounds=passes - 1, near_p_tokens=int(near.sum()))
+    for name, got in (("kernel stats", kernel_keep), ("plain stats", plain_keep)):
+        diff = (got != want) & ~near
+        assert not diff.any(), f"keep set ({name}) differs from the full sort at {int(diff.sum())} tokens: {res}"
+    return res
+
+
+def verify_attention_case(dtype, B: int, start: int, g, nan_check: bool = False) -> dict:
+    """verify_attention at one shape: q [1, B, nh, d], cache [1, T, n_kv, d],
+    T = PALLAS_T; ``nan_check``: K/V rows past start + B set to NaN must leave
+    the output finite and bit-equal."""
+    T = PALLAS_T
+    es = torch.tensor([], dtype=dtype).element_size()
+    L = start + B
+    n = copies_for(2 * T * NKV * D * es)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    sets = [(randn(1, B, NH, D), randn(1, T, NKV, D), randn(1, T, NKV, D)) for _ in range(n)]
+    q, k, v = sets[0]
+    out, ref = attention.verify_attention(q, k, v, start, B), attention.plain(q, k, v, start, B)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    nan_equal = None
+    if nan_check:
+        k2, v2 = k.clone(), v.clone()
+        k2[:, L:], v2[:, L:] = float("nan"), float("nan")
+        dirty = attention.verify_attention(q, k2, v2, start, B)
+        nan_equal = bool(torch.isfinite(dirty).all()) and torch.equal(dirty, out)
+        assert nan_equal, "verify_attention read K/V past the frontier"
+    scale = D ** -0.5
+    mask = torch.arange(L, device="cuda")[None, :] <= start + torch.arange(B, device="cuda")[:, None]
+    lib = [(s[0][0].transpose(0, 1)[None], s[1][0, :L].transpose(0, 1)[None].contiguous(),
+            s[2][0, :L].transpose(0, 1)[None].contiguous()) for s in sets]
+    ms = cuda_ms([lambda s=s: attention.verify_attention(*s, start, B) for s in sets], 50)
+    plain_ms = cuda_ms([lambda s=s: attention.plain(*s, start, B) for s in sets], 10)
+    library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
+        *a, attn_mask=mask, scale=scale, enable_gqa=True) for a in lib], 50)
+    nbytes = (2 * B * NH * D + 2 * L * NKV * D) * es
+    b_ms, b_by = bound_ms(nbytes, 4 * NH * D * (B * start + B * (B + 1) // 2), dtype)
+    return dict(kernel="verify_attention", dtype=str(dtype).split(".")[-1], B=B, T=T, start=start,
+                max_abs_err=err, tol=TOL[dtype], nan_past_frontier_bit_equal=nan_equal, kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
-def build_engine(dtype, max_new: int, int8: bool = False) -> SpecEngine:
-    """Qwen3-8B + a 1-layer draft, random weights from seeds 0/1; ``int8``:
-    the weights quantized by the port (consuming the float dicts) and the
-    int8 KV cache."""
+def build_params(dtype, int8: bool = False) -> tuple:
+    """(dcfg, target params, draft params): Qwen3-8B + a 1-layer draft,
+    random weights from seeds 0/1; ``int8``: the weights quantized by the
+    port (consuming the float dicts)."""
     dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=BLOCK)
     assert dcfg.target_layer_ids == (18,)
     t_params = qwen3.init_params(0, QWEN3_8B, dtype, device="cuda")
@@ -283,9 +409,20 @@ def build_engine(dtype, max_new: int, int8: bool = False) -> SpecEngine:
         t_params = quantize_target_params(t_params, QWEN3_8B, PAD_TO)
         d_params = quantize_draft_params(d_params, dcfg, PAD_TO)
         assert isinstance(t_params["lm_head"], QTensor) and isinstance(d_params["fc"], QTensor)
+    return dcfg, t_params, d_params
+
+
+def make_engine(params: tuple, max_new: int, int8: bool = False, attn_impl: str = "xla") -> SpecEngine:
+    """An engine on ``params`` (shared, not copied); ``int8``: the int8 KV cache."""
+    dcfg, t_params, d_params = params
     return SpecEngine(QWEN3_8B, dcfg, t_params, d_params, max_new_tokens=max_new,
                       block_size=BLOCK, prompt_cap=PROMPT_CAP, prompt_bucket=128, device="cuda",
-                      kv_quant=int8)
+                      kv_quant=int8, attn_impl=attn_impl)
+
+
+def release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def prompts() -> list:
@@ -298,26 +435,31 @@ def reset_counts() -> None:
     verify_fused.fused_ctx_block_attention.launches_int8 = 0
     prefill_flash.flash_prefill_attention.launches = 0
     matmul_q.matmul_int8.launches = 0
+    filter_stats.filter_stats.launches = 0
+    attention.verify_attention.launches = 0
 
 
 def counts() -> dict:
     return {"verify_fused": verify_fused.fused_ctx_block_attention.launches,
             "verify_fused_int8_ctx": verify_fused.fused_ctx_block_attention.launches_int8,
             "prefill_flash": prefill_flash.flash_prefill_attention.launches,
-            "matmul_int8": matmul_q.matmul_int8.launches}
+            "matmul_int8": matmul_q.matmul_int8.launches,
+            "filter_stats": filter_stats.filter_stats.launches,
+            "verify_attention": attention.verify_attention.launches}
 
 
-def path_name(int8: bool) -> str:
-    return "int8 path (int8 weights, kv_quant)" if int8 else "bf16/f32 path"
+def path_name(int8: bool, attn_impl: str = "xla") -> str:
+    if int8:
+        return "int8 path (int8 weights, kv_quant)"
+    return "attn_impl='pallas' path" if attn_impl == "pallas" else "bf16/f32 path"
 
 
-def parity_phase(int8: bool = False) -> dict:
-    t0 = time.perf_counter()
-    engine = build_engine(torch.float32, PARITY_NEW, int8)
-    torch.cuda.synchronize()
-    tag = "[parity-int8]" if int8 else "[parity]"
-    log(f"{tag} f32 Qwen3-8B (L=36, H=4096) + 1-layer draft, {path_name(int8)}, initialised in "
-        f"{time.perf_counter() - t0:.1f} s, total_len={engine.total_len}")
+def parity_phase(engine: SpecEngine, tag: str) -> tuple:
+    """f32 spec == AR on both prompts with exact launch counts; returns the
+    counts and the spec outputs."""
+    int8, pallas = engine.kv_quant, engine.attn_impl == "pallas"
+    log(f"{tag} f32 Qwen3-8B (L=36, H=4096) + 1-layer draft, {path_name(int8, engine.attn_impl)}, "
+        f"total_len={engine.total_len}")
     L = QWEN3_8B.num_hidden_layers
     Ld = engine.dcfg.model.num_hidden_layers
     # matmul_int8 launches: a target forward (7 projections a layer) + its
@@ -326,12 +468,15 @@ def parity_phase(int8: bool = False) -> dict:
     target_fwd, draft_append, draft_fwd = 7 * L + 1, 1 + 2 * Ld, 7 * Ld + 1
     reset_counts()
     expected = dict.fromkeys(counts(), 0)
+    outputs = []
     for i, prompt in enumerate(prompts()):
         spec = engine.generate(prompt, temperature=0.0)
         ar = engine.ar_generate(prompt, temperature=0.0)
+        outputs.append(spec.output_ids)
         n_cycles = len(spec.acceptance_lengths)
         expected["prefill_flash"] += 2 * L
-        expected["verify_fused_int8_ctx" if int8 else "verify_fused"] += (n_cycles + PARITY_NEW) * L
+        target_attn = "verify_attention" if pallas else "verify_fused_int8_ctx" if int8 else "verify_fused"
+        expected[target_attn] += (n_cycles + PARITY_NEW) * L
         expected["verify_fused"] += n_cycles * Ld  # the draft's float context cache
         if int8:
             expected["matmul_int8"] += (target_fwd + draft_append  # spec prefill
@@ -347,10 +492,37 @@ def parity_phase(int8: bool = False) -> dict:
     log(f"{tag} launches {json.dumps(got)} expected {json.dumps(expected)}")
     assert got == expected, (got, expected)
     path_kernels = ["verify_fused", "prefill_flash"] + (["verify_fused_int8_ctx", "matmul_int8"] if int8 else [])
+    path_kernels += ["verify_attention"] if pallas else []
     assert all(got[k] > 0 for k in path_kernels), got
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    return got, outputs
+
+
+def filtered_parity_phase(engine: SpecEngine, greedy: list) -> dict:
+    """Phase 4d: requests whose keep set is the argmax alone give the greedy
+    spec tokens, every sample (first token, each verify posterior) through
+    the filtered sampler with no refinement round: exactly 1 + n_cycles
+    filter_stats launches per request."""
+    L = QWEN3_8B.num_hidden_layers
+    Ld = engine.dcfg.model.num_hidden_layers
+    reset_counts()
+    expected = dict.fromkeys(counts(), 0)
+    for i, prompt in enumerate(prompts()):
+        for temperature, top_k, top_p in ((1.5, 1, 1.0), (2.0, 2, 1e-6)):
+            before = filter_stats.filter_stats.launches
+            out = engine.generate(prompt, temperature=temperature, top_k=top_k, top_p=top_p, seed=i)
+            n_cycles = len(out.acceptance_lengths)
+            launches = filter_stats.filter_stats.launches - before
+            log(f"[parity-filtered] prompt {i}: temperature {temperature}, top_k {top_k}, top_p {top_p}: "
+                f"{out.num_output_tokens} tokens in {n_cycles} cycles, filter_stats launches {launches} "
+                f"(1 + n_cycles = {1 + n_cycles}); == greedy: {np.array_equal(out.output_ids, greedy[i])}")
+            np.testing.assert_array_equal(out.output_ids, greedy[i])
+            assert launches == 1 + n_cycles, (launches, n_cycles)
+            expected["filter_stats"] += 1 + n_cycles
+            expected["prefill_flash"] += L
+            expected["verify_fused"] += n_cycles * (L + Ld)
+    got = counts()
+    log(f"[parity-filtered] launches {json.dumps(got)} expected {json.dumps(expected)}")
+    assert got == expected, (got, expected)
     return got
 
 
@@ -361,8 +533,7 @@ def agreement(a: np.ndarray, b: np.ndarray) -> int:
     return int(diff[0]) if diff.size else n
 
 
-def timing_phase(int8: bool = False) -> dict:
-    engine = build_engine(torch.bfloat16, TIMING_NEW, int8)
+def timing_phase(engine: SpecEngine) -> dict:
     ps = prompts()
     forced = make_forced_acc(TIMING_NEW, BLOCK, REF_TAU)
     engine.generate(ps[0])  # warm-up: cuBLAS heuristics, allocator
@@ -385,15 +556,33 @@ def timing_phase(int8: bool = False) -> dict:
         "spec_forced_tau": float(np.mean([t for r in runs["spec_forced"] for t in r.acceptance_lengths])),
         "agreement_tokens": [agreement(s.output_ids, a.output_ids)
                              for s, a in zip(runs["spec"], runs["ar"])],
-        "path": path_name(int8),
+        "path": path_name(engine.kv_quant, engine.attn_impl),
         "new_tokens": TIMING_NEW,
+        "total_len": engine.total_len,
         "spread_ms": {k: [round(r.time_per_output_token * 1e3, 4) for r in v] for k, v in runs.items()},
         "launches": counts(),
     }
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
     return res
+
+
+def filtered_timing_phase(engine: SpecEngine) -> dict:
+    """Phase 5c: filtered spec decoding on the default path, 3 runs."""
+    ps = prompts()
+    engine.generate(ps[0], seed=0, **FILTERED)  # warm-up
+    reset_counts()
+    runs = [engine.generate(ps[rep % 2], seed=rep, **FILTERED) for rep in range(3)]
+    calls = sum(1 + len(r.acceptance_lengths) for r in runs)  # first token + one per cycle
+    launches = filter_stats.filter_stats.launches
+    return {
+        "path": "bf16/f32 path, filtered sampling", **FILTERED, "new_tokens": TIMING_NEW,
+        "spec_tpot_ms": float(np.median([r.time_per_output_token for r in runs])) * 1e3,
+        "spec_tau": float(np.mean([t for r in runs for t in r.acceptance_lengths])),
+        "ttft_ms": float(np.median([r.time_to_first_token for r in runs])) * 1e3,
+        "spread_ms": [round(r.time_per_output_token * 1e3, 4) for r in runs],
+        "sampling_calls": calls, "filter_stats_launches": launches,
+        "refinement_rounds_per_call": (launches - calls) / calls,
+        "launches": counts(),
+    }
 
 
 def main() -> int:
@@ -444,18 +633,61 @@ def main() -> int:
             for S in (1, BLOCK, PROMPT_CAP):
                 cases.append(matmul_case(dtype, K, N, S, g, int8pack))
                 log("[kernel] " + json.dumps(cases[-1]))
+    for N in (1, BLOCK):
+        for T_thr in (2 * sampling.REPAIR_W, 2 * sampling.REFINE_W, filter_stats.THR_CAP):
+            cases.append(filter_stats_case(N, T_thr, g))
+            log("[kernel] " + json.dumps(cases[-1]))
+    for top_k, top_p in KEEP_CASES:
+        log("[keep-set] " + json.dumps(keep_set_case(top_k, top_p, g)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (BLOCK, 1):
+            for start in (0, 1, 700, PALLAS_T - 16):
+                nan_check = dtype == torch.bfloat16 and B == BLOCK and start == 700
+                cases.append(verify_attention_case(dtype, B, start, g, nan_check))
+                log("[kernel] " + json.dumps(cases[-1]))
 
-    # phase 4: exact parity through the kernels, f32; 4b: the int8 path
-    launches = parity_phase()
-    launches_int8 = parity_phase(int8=True)
+    # phase 4: exact parity through the kernels, f32, on one set of weights:
+    # 4 the default engine, 4c the "pallas" engine, 4d filtered requests;
+    # 4b: the int8 path
+    t0 = time.perf_counter()
+    params = build_params(torch.float32)
+    torch.cuda.synchronize()
+    log(f"[parity] f32 weights initialised in {time.perf_counter() - t0:.1f} s")
+    engine = make_engine(params, PARITY_NEW)
+    launches, greedy = parity_phase(engine, "[parity]")
+    launches_pallas, pallas_out = parity_phase(make_engine(params, PARITY_NEW, attn_impl="pallas"),
+                                               "[parity-pallas]")
+    log("[parity-pallas] tokens agreeing with phase 4's, per prompt: "
+        f"{[agreement(a, b) for a, b in zip(pallas_out, greedy)]} of {PARITY_NEW}")
+    launches_filtered = filtered_parity_phase(engine, greedy)
+    del engine, params
+    release()
+    launches_int8, _ = parity_phase(make_engine(build_params(torch.float32, int8=True), PARITY_NEW, int8=True),
+                                    "[parity-int8]")
+    release()
 
-    # phase 5: timing, bf16; 5b: the int8 path
-    timing = timing_phase()
+    # phase 5: timing, bf16; 5c: the "pallas" path and filtered sampling on
+    # the same weights; 5b: the int8 path
+    params = build_params(torch.bfloat16)
+    engine = make_engine(params, TIMING_NEW)
+    timing = timing_phase(engine)
     log("[timing] " + json.dumps(timing))
-    timing_int8 = timing_phase(int8=True)
+    timing_pallas = timing_phase(make_engine(params, TIMING_NEW, attn_impl="pallas"))
+    log("[timing-pallas] " + json.dumps(timing_pallas))
+    timing_filtered = filtered_timing_phase(engine)
+    log("[timing-filtered] " + json.dumps(timing_filtered))
+    del engine, params
+    release()
+    timing_int8 = timing_phase(make_engine(build_params(torch.bfloat16, int8=True), TIMING_NEW, int8=True))
     log("[timing-int8] " + json.dumps(timing_int8))
+    release()
     for key in ("ttft_spec_ms", "ttft_ar_ms", "ar_tpot_ms", "spec_tpot_ms", "spec_forced_tpot_ms"):
-        log(f"[timing] {key}: bf16 path {timing[key]:.3f}, int8 path {timing_int8[key]:.3f}")
+        log(f"[timing] {key}: bf16 path {timing[key]:.3f}, pallas path {timing_pallas[key]:.3f}, "
+            f"int8 path {timing_int8[key]:.3f}")
+    log(f"[timing] filtered spec TPOT {timing_filtered['spec_tpot_ms']:.3f} ms (tau "
+        f"{timing_filtered['spec_tau']:.3f}, {timing_filtered['refinement_rounds_per_call']:.2f} refinement "
+        f"rounds per sampling call) beside greedy spec TPOT {timing['spec_tpot_ms']:.3f} ms (tau "
+        f"{timing['spec_tau']:.3f}) of the same run")
 
     def pick(kernel, **match):
         return next(c for c in cases if c["kernel"] == kernel and all(c[k] == v for k, v in match.items()))
@@ -474,6 +706,12 @@ def main() -> int:
         "matmul_int8": (pick("matmul_int8", dtype="bfloat16", S=BLOCK, K=H, N=I),
                         "dflash_tpu_torch/kernels/csrc/matmul_q.cu",
                         "dflash_tpu/kernels/matmul_q.py:56", launches_int8["matmul_int8"]),
+        "filter_stats": (pick("filter_stats", N=BLOCK, T=2 * sampling.REPAIR_W),
+                         "dflash_tpu_torch/kernels/csrc/filter_stats.cu",
+                         "dflash_tpu/kernels/filter_stats.py:117", launches_filtered["filter_stats"]),
+        "verify_attention": (pick("verify_attention", dtype="bfloat16", B=BLOCK, start=700),
+                             "dflash_tpu_torch/kernels/csrc/attention.cu",
+                             "dflash_tpu/kernels/attention.py:113", launches_pallas["verify_attention"]),
     }
     summary = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -8,8 +8,10 @@ residual adds, before the final norm) is captured and concatenated along the
 feature axis, in ``tap_ids`` order.
 
 Attention goes through the port's kernels: ``forward_prefill`` through
-``prefill_flash`` and ``forward_block_candidates`` through ``verify_fused``
-(its int8 branch when the context cache is a ``QuantKVCache``).  Weights may
+``prefill_flash``, ``forward_block_candidates`` through ``verify_fused`` (its
+int8 branch when the context cache is a ``QuantKVCache``), and the
+full-buffer ``forward`` with ``attn_impl="pallas"`` through
+``verify_attention``.  Weights may
 be int8 ``QTensor`` stacks (``quant/quantize.py``); ``linear`` then runs
 ``matmul_int8``.  On CPU tensors the kernels run their plain versions.  The
 MoE MLP is not ported yet (ROADMAP.md).
@@ -22,8 +24,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache
+from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache, update_layer
 from dflash_tpu_torch.core.config import ModelConfig
+from dflash_tpu_torch.kernels.attention import verify_attention
 from dflash_tpu_torch.kernels.prefill_flash import flash_prefill_attention
 from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention
 from dflash_tpu_torch.ops.linear import linear
@@ -145,6 +148,58 @@ def _concat_taps(taps: dict, tap_ids: Tuple[int, ...], like: torch.Tensor) -> to
     if not tap_ids:
         return torch.zeros_like(like)
     return torch.cat([taps[l] for l in tap_ids], dim=-1)
+
+
+class ForwardResult(NamedTuple):
+    hidden: torch.Tensor  # [B, S, H]: final-norm'd hidden states
+    taps: torch.Tensor  # [B, S, n_taps * H]
+    kv: AnyKVCache  # the cache, with this call's K/V rows written (in place)
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    embeds: torch.Tensor,  # [B, S, H]
+    positions: torch.Tensor,  # [B, S] absolute positions
+    kv: AnyKVCache,
+    write_pos: int,  # cache row of embeds[:, 0]
+    mask: Optional[torch.Tensor],  # [S, T] over the full buffer: the "xla" branch's (not ported)
+    tap_ids: Tuple[int, ...] = (),
+    attn_impl: str = "xla",
+) -> ForwardResult:
+    """One target forward over S tokens that writes their K/V into ``kv`` at
+    ``write_pos``, layer by layer and in place, and attends over the cache
+    after the write.
+
+    Only ``attn_impl="pallas"`` is ported: attention through the
+    frontier-bounded ``verify_attention`` kernel, which reads cache rows below
+    ``write_pos + S`` and lets row i attend keys j <= write_pos + i.  Valid
+    when ``positions[0, i] == write_pos + i`` (the verify / AR decode pattern),
+    batch 1, unquantized cache; ``mask`` is not read there.  The "xla",
+    "bucketed" and quantized-cache branches (``_attend_cache``,
+    ``gqa_attention_quant(_bucketed)``) are ROADMAP Queue 1 item 13.
+    """
+    _require_dense(cfg)
+    if attn_impl != "pallas":
+        raise NotImplementedError(
+            f"qwen3.forward(attn_impl={attn_impl!r}) is not ported to dflash_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 13); attn_impl='pallas' is")
+    B, S, _ = embeds.shape
+    if B != 1 or isinstance(kv, QuantKVCache):
+        raise ValueError("attn_impl='pallas' needs batch 1 + bf16 cache")
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    hidden = embeds
+    taps = {}
+    for l in range(cfg.num_hidden_layers):
+        p = _layer(params, l)
+        q, k, v = _qkv(p, cfg, hidden, cos, sin)
+        update_layer(kv.k[l], kv.v[l], k, v, write_pos)
+        attn = verify_attention(q, kv.k[l], kv.v[l], write_pos, block=S)
+        hidden = _finish_layer(p, cfg, hidden, attn)
+        if l in tap_ids:
+            taps[l] = hidden
+    out = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    return ForwardResult(out, _concat_taps(taps, tap_ids, embeds), kv)
 
 
 class PrefillResult(NamedTuple):

@@ -23,10 +23,13 @@ def spec_generate(
     *,
     block_size: Optional[int] = None,
     seed: int = 0,
+    top_k: int = 0,
+    top_p: float = 1.0,
     device: str | torch.device = "cuda",
 ) -> GenerationResult:
     """Speculative generation for one prompt through a transient
-    :class:`SpecEngine`.  ``block_size`` defaults to ``dcfg.block_size``."""
+    :class:`SpecEngine`.  ``block_size`` defaults to ``dcfg.block_size``;
+    ``top_k`` / ``top_p`` are the request's sampling filters."""
     input_ids = np.asarray(input_ids)
     if input_ids.ndim == 1:
         input_ids = input_ids[None, :]
@@ -39,4 +42,4 @@ def spec_generate(
         stop_token_ids=stop_token_ids,
         device=device,
     )
-    return engine.generate(input_ids, temperature=temperature, seed=seed)
+    return engine.generate(input_ids, temperature=temperature, seed=seed, top_k=top_k, top_p=top_p)

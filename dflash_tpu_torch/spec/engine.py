@@ -1,5 +1,5 @@
 """The draft -> verify -> accept speculative decoding engine.  Port of the
-single-request greedy path of ``dflash_tpu/spec/engine.py``.
+single-request path of ``dflash_tpu/spec/engine.py``.
 
 JAX runs the whole decode as one on-device ``lax.while_loop``.  Here the loop
 is a Python ``while`` over device tensors, and the host reads the cycle's
@@ -26,8 +26,17 @@ branch of ``verify_fused``.  The draft's context cache stays in the activation
 dtype.  Int8 weights need nothing from the engine: ``linear`` dispatches on
 the weight type.
 
-Not ported yet (they raise): sampling filters, chunked / prefix prefill,
-meshes and sequence sharding.
+Sampling filters (``generate(top_k, top_p)``) sample the first token, the
+verify posterior and the AR steps through ``sample_topk_topp``, whose exact
+keep set comes from the ``filter_stats`` kernel.  ``attn_impl="pallas"`` runs
+the verify and the AR step through ``qwen3.forward``, which writes the block's
+K/V rows into the cache layer by layer and attends through the
+frontier-bounded ``verify_attention`` kernel (no separate commit); the draft
+stays on ``verify_fused``.  The default ``attn_impl="xla"`` is the two-part
+route above.
+
+Not ported yet (they raise): ``attn_impl`` "fused" / "bucketed" /
+"xla_fullbuf", chunked / prefix prefill, meshes and sequence sharding.
 """
 
 from __future__ import annotations
@@ -49,7 +58,25 @@ from dflash_tpu_torch.cache.kv import (
 )
 from dflash_tpu_torch.core.config import DraftConfig, ModelConfig
 from dflash_tpu_torch.models import dflash_draft, qwen3
-from dflash_tpu_torch.ops.sampling import acceptance_length, sample
+from dflash_tpu_torch.ops.sampling import TOPK_POOL, acceptance_length, sample, sample_topk_topp
+
+ATTN_IMPLS = ("xla", "pallas")
+
+
+class SamplingFilters(NamedTuple):
+    """Per-request top-k / top-p filters (the rest of the reference serving
+    client's ``sampling_params``).  ``top_k <= 0`` and ``top_p >= 1``
+    disable."""
+
+    top_k: int
+    top_p: float
+
+
+def _sample_posterior(logits: torch.Tensor, temperature: float, generator,
+                      filters: Optional[SamplingFilters], topk_pool: int = TOPK_POOL) -> torch.Tensor:
+    if filters is None:
+        return sample(logits, temperature, generator)
+    return sample_topk_topp(logits, temperature, generator, filters.top_k, filters.top_p, pool=topk_pool)
 
 
 @dataclass
@@ -117,7 +144,8 @@ def _init_output_ids(input_ids: torch.Tensor, prompt_len: int, first_token: torc
 
 def _prefill_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int,
                   temperature: float, generator, *, tcfg: ModelConfig, dcfg: DraftConfig,
-                  total_len: int, kv_quant: bool = False) -> LoopState:
+                  total_len: int, kv_quant: bool = False,
+                  filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> LoopState:
     """Target prefill + first-token sample + draft context prefill."""
     P = input_ids.shape[1]
     device = input_ids.device
@@ -125,7 +153,8 @@ def _prefill_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int,
     t_kv, taps, last_hidden = _prefill_target(
         t_params, tcfg, input_ids, prompt_len, dcfg.target_layer_ids, total_len, kv_quant
     )
-    first_token = sample(qwen3.lm_head(t_params, last_hidden), temperature, generator)
+    first_token = _sample_posterior(qwen3.lm_head(t_params, last_hidden), temperature, generator,
+                                    filters, topk_pool)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, dcfg.mask_token_id)
 
     features = torch.zeros((1, total_len, taps.shape[-1]), dtype=taps.dtype, device=device)
@@ -160,22 +189,31 @@ def _draft_stage(state: LoopState, t_params, d_params, *, dcfg: DraftConfig, blo
 
 def _verify_stage(state: LoopState, block: torch.Tensor, t_params, temperature: float, *,
                   tcfg: ModelConfig, dcfg: DraftConfig, block_size: int,
-                  stop_token_ids: frozenset, forced_acc: Optional[np.ndarray] = None) -> None:
+                  stop_token_ids: frozenset, forced_acc: Optional[np.ndarray] = None,
+                  attn_impl: str = "xla", filters: Optional[SamplingFilters] = None,
+                  topk_pool: int = TOPK_POOL) -> None:
     """Target verify of the drafted block [1, B], acceptance, commit at the
     frontier and feature recycling.  Advances ``state`` in place."""
     B = block_size
     start = state.start
     device = block.device
     block_positions = (start + torch.arange(B, device=device))[None, :]
+    embeds = qwen3.embed(t_params, block)
 
-    # verify forward: the context cache is read-only inside the layer loop;
-    # the block's K/V rows commit once, after it
-    res = qwen3.forward_block_candidates(
-        t_params, tcfg, qwen3.embed(t_params, block), block_positions, state.t_kv, start,
-        tap_ids=dcfg.target_layer_ids,
-    )
-    update_any(state.t_kv, res.blk_k, res.blk_v, start)
-    posterior = sample(qwen3.lm_head(t_params, res.hidden), temperature, state.generator)  # [1, B]
+    if attn_impl == "pallas":
+        # the full-buffer forward writes the block's K/V rows into the cache
+        # layer by layer and attends through the frontier-bounded kernel
+        res = qwen3.forward(t_params, tcfg, embeds, block_positions, state.t_kv, start, None,
+                            tap_ids=dcfg.target_layer_ids, attn_impl="pallas")
+    else:
+        # two-part verify: the context cache is read-only inside the layer
+        # loop; the block's K/V rows commit once, after it
+        res = qwen3.forward_block_candidates(
+            t_params, tcfg, embeds, block_positions, state.t_kv, start, tap_ids=dcfg.target_layer_ids,
+        )
+        update_any(state.t_kv, res.blk_k, res.blk_v, start)
+    posterior = _sample_posterior(qwen3.lm_head(t_params, res.hidden), temperature, state.generator,
+                                  filters, topk_pool)  # [1, B]
 
     # accept: the one host read of the cycle (acc, the block and the posterior)
     acc_t = acceptance_length(block[:, 1:], posterior)
@@ -206,12 +244,14 @@ def _verify_stage(state: LoopState, block: torch.Tensor, t_params, temperature: 
 def _decode_impl(t_params, d_params, state: LoopState, max_length: int, temperature: float, *,
                  tcfg: ModelConfig, dcfg: DraftConfig, block_size: int,
                  stop_token_ids: frozenset, max_cycles: int,
-                 forced_acc: Optional[np.ndarray] = None) -> LoopState:
+                 forced_acc: Optional[np.ndarray] = None, attn_impl: str = "xla",
+                 filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> LoopState:
     while state.start < max_length and not state.done and state.cycle_idx < max_cycles:
         block = _draft_stage(state, t_params, d_params, dcfg=dcfg, block_size=block_size)
         _verify_stage(
             state, block, t_params, temperature, tcfg=tcfg, dcfg=dcfg, block_size=block_size,
-            stop_token_ids=stop_token_ids, forced_acc=forced_acc,
+            stop_token_ids=stop_token_ids, forced_acc=forced_acc, attn_impl=attn_impl,
+            filters=filters, topk_pool=topk_pool,
         )
     return state
 
@@ -231,31 +271,36 @@ class ARState:
 
 def _ar_prefill(t_params, input_ids: torch.Tensor, prompt_len: int, temperature: float,
                 generator, *, tcfg: ModelConfig, total_len: int, mask_token_id: int,
-                kv_quant: bool = False) -> ARState:
+                kv_quant: bool = False, filters: Optional[SamplingFilters] = None) -> ARState:
     t_kv, _, last_hidden = _prefill_target(t_params, tcfg, input_ids, prompt_len, (), total_len,
                                            kv_quant)
-    first_token = sample(qwen3.lm_head(t_params, last_hidden), temperature, generator)
+    first_token = _sample_posterior(qwen3.lm_head(t_params, last_hidden), temperature, generator,
+                                    filters)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, mask_token_id)
     return ARState(output_ids, prompt_len, False, generator, t_kv)
 
 
 def _ar_decode(t_params, state: ARState, max_length: int, temperature: float, *,
-               tcfg: ModelConfig, stop_token_ids: frozenset) -> ARState:
-    """AR decode.  Each step is ``forward_block_candidates`` with B = 1 and one
-    commit, through the ``verify_fused`` kernel: the structure of the JAX
-    engine's ``attn_impl="xla"`` AR step.  This is deliberate: JAX's
-    ``attn_impl="fused"`` engine runs its AR step through ``qwen3.forward``
-    instead, which the port does not have; the oracle keeps the same math."""
+               tcfg: ModelConfig, stop_token_ids: frozenset, attn_impl: str = "xla",
+               filters: Optional[SamplingFilters] = None) -> ARState:
+    """AR decode, one target token per step.  ``attn_impl="xla"``:
+    ``forward_block_candidates`` with B = 1 and one commit, through the
+    ``verify_fused`` kernel (the JAX engine's "xla" AR step).  "pallas":
+    ``qwen3.forward`` with S = 1, which writes the row and attends through
+    ``verify_attention``."""
     device = state.output_ids.device
     while state.start < max_length and not state.done:
         s = state.start
         tok = state.output_ids[:, s:s + 1]
         positions = torch.full((1, 1), s, dtype=torch.long, device=device)
-        res = qwen3.forward_block_candidates(
-            t_params, tcfg, qwen3.embed(t_params, tok), positions, state.t_kv, s,
-        )
-        update_any(state.t_kv, res.blk_k, res.blk_v, s)
-        nxt = sample(qwen3.lm_head(t_params, res.hidden), temperature, state.generator)[0, 0]
+        embeds = qwen3.embed(t_params, tok)
+        if attn_impl == "pallas":
+            res = qwen3.forward(t_params, tcfg, embeds, positions, state.t_kv, s, None, attn_impl="pallas")
+        else:
+            res = qwen3.forward_block_candidates(t_params, tcfg, embeds, positions, state.t_kv, s)
+            update_any(state.t_kv, res.blk_k, res.blk_v, s)
+        nxt = _sample_posterior(qwen3.lm_head(t_params, res.hidden), temperature, state.generator,
+                                filters)[0, 0]
         state.output_ids[0, s + 1] = nxt
         if stop_token_ids:  # host read only when there is something to stop on
             state.done = any(t in stop_token_ids for t in torch.stack([nxt, tok[0, 0]]).tolist())
@@ -279,6 +324,10 @@ class SpecEngine:
     parameters (float, or int8 from ``dflash_tpu_torch.quant``) must already
     live on ``device``; the default is the card, and building on a machine
     without one raises.  ``kv_quant=True`` keeps the target's KV cache in int8.
+    ``attn_impl``: "xla" (the two-part verify, default) or "pallas" (the
+    full-buffer forward through the frontier-bounded kernel; the buffers are
+    rounded up to a multiple of 512 rows, as in JAX).  ``topk_pool``: the
+    filtered sampler's candidate pool; ``generate`` rejects a wider top_k.
     """
 
     def __init__(
@@ -298,11 +347,18 @@ class SpecEngine:
         prefill_chunk: Optional[int] = None,
         mesh=None,
         seq_axis: Optional[str] = None,
+        attn_impl: str = "xla",
+        topk_pool: int = TOPK_POOL,
     ):
         if prefill_chunk is not None or mesh is not None or seq_axis is not None:
             raise NotImplementedError(
                 "prefill_chunk, mesh and seq_axis are not ported to dflash_tpu_torch yet"
             )
+        if attn_impl not in ATTN_IMPLS:
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} is not ported to dflash_tpu_torch yet; it has {ATTN_IMPLS}")
+        if attn_impl == "pallas" and kv_quant:
+            raise ValueError("attn_impl='pallas' needs batch 1 + bf16 cache (kv_quant=False)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SpecEngine(device='cuda'): no CUDA device; pass device='cpu' to run on the CPU")
@@ -320,7 +376,11 @@ class SpecEngine:
         self.prompt_bucket = int(prompt_bucket)
         self.stop_token_ids = tuple(int(s) for s in stop_token_ids)
         self.kv_quant = bool(kv_quant)
+        self.attn_impl = attn_impl
+        self.topk_pool = int(topk_pool)
         self.total_len = self.prompt_cap + self.max_new_tokens + self.block_size + 1
+        if attn_impl == "pallas":
+            self.total_len = _round_up(self.total_len, 512)
 
     def _pad_prompt(self, input_ids: np.ndarray) -> tuple[torch.Tensor, int, int]:
         input_ids = np.asarray(input_ids)
@@ -346,6 +406,13 @@ class SpecEngine:
             if hits.size > 0:
                 gen = gen[: hits[0] + 1]
         return np.concatenate([seq[:prompt_len], gen])[None, :]
+
+    @staticmethod
+    def _filters(top_k: int, top_p: float) -> Optional[SamplingFilters]:
+        """None when both filters are no-ops (the unfiltered sampler)."""
+        if top_k <= 0 and top_p >= 1.0:
+            return None
+        return SamplingFilters(int(top_k), float(top_p))
 
     def _generator(self, temperature: float, seed: int) -> Optional[torch.Generator]:
         if temperature <= 0.0:
@@ -375,16 +442,20 @@ class SpecEngine:
         top_k: int = 0,
         top_p: float = 1.0,
     ) -> GenerationResult:
-        if top_k > 0 or top_p < 1.0:
-            raise NotImplementedError("top-k / top-p filters are not ported to dflash_tpu_torch yet")
+        if top_k > self.topk_pool:
+            raise ValueError(
+                f"top_k={top_k} exceeds the engine's exact pool (topk_pool={self.topk_pool}); "
+                f"build the engine with a wider topk_pool instead of silently clamping")
         ids, prompt_len, _ = self._pad_prompt(input_ids)
         max_length = prompt_len + self.max_new_tokens
+        filters = self._filters(top_k, top_p)
 
         t0 = time.perf_counter()
         state = _prefill_impl(
             self.t_params, self.d_params, ids, prompt_len, temperature,
             self._generator(temperature, seed), tcfg=self.tcfg, dcfg=self.dcfg,
-            total_len=self.total_len, kv_quant=self.kv_quant,
+            total_len=self.total_len, kv_quant=self.kv_quant, filters=filters,
+            topk_pool=self.topk_pool,
         )
         _sync(self.device)
         ttft = time.perf_counter() - t0
@@ -400,7 +471,8 @@ class SpecEngine:
             self.t_params, self.d_params, state, max_length, temperature,
             tcfg=self.tcfg, dcfg=self.dcfg, block_size=self.block_size,
             stop_token_ids=frozenset(self.stop_token_ids), max_cycles=self.max_new_tokens,
-            forced_acc=forced_acc,
+            forced_acc=forced_acc, attn_impl=self.attn_impl, filters=filters,
+            topk_pool=self.topk_pool,
         )
         _sync(self.device)
         decode_wall = time.perf_counter() - t1
@@ -423,6 +495,7 @@ class SpecEngine:
         state = _ar_decode(
             self.t_params, state, max_length, temperature,
             tcfg=self.tcfg, stop_token_ids=frozenset(self.stop_token_ids),
+            attn_impl=self.attn_impl,
         )
         _sync(self.device)
         decode_wall = time.perf_counter() - t1

@@ -1,14 +1,18 @@
 #!/usr/bin/env python
 """Where the PyTorch/CUDA port's decode time goes on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_decode.py           # the bf16 path
-    python3 scripts/torch_profile_decode.py --int8    # int8 weights + kv_quant
+    python3 scripts/torch_profile_decode.py              # the bf16 path
+    python3 scripts/torch_profile_decode.py --int8       # int8 weights + kv_quant
+    python3 scripts/torch_profile_decode.py --pallas     # attn_impl="pallas"
+    python3 scripts/torch_profile_decode.py --filtered   # spec at T 0.8, top_k 50, top_p 0.95
 
 Builds the bf16 Qwen3-8B engine of chip_smoke.py (full width and depth,
 random weights from a seed, 1-layer draft, a 600-token prompt padded to 640;
-with ``--int8`` the weights quantized by the port and the int8 KV cache),
-warms it up, then for AR decode and spec decode (the random draft's own
-acceptance) prints one JSON line each with: the decode's wall ms per token
+with ``--int8`` the weights quantized by the port and the int8 KV cache,
+with ``--pallas`` the engine built with ``attn_impl="pallas"``), warms it
+up, then for AR decode and spec decode (the random draft's own acceptance;
+``--filtered``: spec decode only, sampled through the top-k / top-p filters)
+prints one JSON line each with: the decode's wall ms per token
 without the profiler (two runs); and, for one more decode under
 torch.profiler (the prefill runs before the profiler starts), the device busy
 share (union of kernel intervals over the profiled wall time), kernel
@@ -85,7 +89,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device", file=sys.stderr)
         return 1
-    int8 = "--int8" in sys.argv[1:]
+    mode = next((a[2:] for a in sys.argv[1:] if a in ("--int8", "--pallas", "--filtered")), "bf16")
+    int8 = mode == "int8"
+    temperature, filters = (0.8, eng.SamplingFilters(50, 0.95)) if mode == "filtered" else (0.0, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     dcfg = dflash_draft_config(QWEN3_8B, num_draft_layers=1, block_size=16)
     t_params = qwen3.init_params(0, QWEN3_8B, torch.bfloat16)
@@ -96,30 +102,34 @@ def main() -> int:
     e = eng.SpecEngine(
         QWEN3_8B, dcfg, t_params, d_params, max_new_tokens=NEW_TOKENS,
         block_size=16, prompt_cap=640, prompt_bucket=128, kv_quant=int8,
+        attn_impl="pallas" if mode == "pallas" else "xla",
     )
     prompt = np.random.default_rng(0).integers(1, QWEN3_8B.vocab_size - 2, size=(1, 600))
     ids, plen, _ = e._pad_prompt(prompt)
     max_length = plen + NEW_TOKENS
-    print(torch.cuda.get_device_name(0), "int8 path" if int8 else "bf16 path", flush=True)
-    tag = "-int8" if int8 else ""
-    ar = measure(
-        "ar" + tag,
-        lambda: eng._ar_prefill(e.t_params, ids, plen, 0.0, None, tcfg=e.tcfg,
-                                total_len=e.total_len, mask_token_id=dcfg.mask_token_id,
-                                kv_quant=int8),
-        lambda st: eng._ar_decode(e.t_params, st, max_length, 0.0, tcfg=e.tcfg,
-                                  stop_token_ids=frozenset()),
-        lambda: e.ar_generate(prompt),
-    )
-    print(json.dumps(ar), flush=True)
+    print(torch.cuda.get_device_name(0), f"{mode} path", flush=True)
+    tag = "" if mode == "bf16" else "-" + mode
+    if filters is None:  # ar_generate takes no filters
+        ar = measure(
+            "ar" + tag,
+            lambda: eng._ar_prefill(e.t_params, ids, plen, 0.0, None, tcfg=e.tcfg,
+                                    total_len=e.total_len, mask_token_id=dcfg.mask_token_id,
+                                    kv_quant=int8),
+            lambda st: eng._ar_decode(e.t_params, st, max_length, 0.0, tcfg=e.tcfg,
+                                      stop_token_ids=frozenset(), attn_impl=e.attn_impl),
+            lambda: e.ar_generate(prompt),
+        )
+        print(json.dumps(ar), flush=True)
     spec = measure(
         "spec" + tag,
-        lambda: eng._prefill_impl(e.t_params, e.d_params, ids, plen, 0.0, None, tcfg=e.tcfg,
-                                  dcfg=dcfg, total_len=e.total_len, kv_quant=int8),
-        lambda st: eng._decode_impl(e.t_params, e.d_params, st, max_length, 0.0, tcfg=e.tcfg,
+        lambda: eng._prefill_impl(e.t_params, e.d_params, ids, plen, temperature,
+                                  e._generator(temperature, 0), tcfg=e.tcfg, dcfg=dcfg,
+                                  total_len=e.total_len, kv_quant=int8, filters=filters),
+        lambda st: eng._decode_impl(e.t_params, e.d_params, st, max_length, temperature, tcfg=e.tcfg,
                                     dcfg=dcfg, block_size=16, stop_token_ids=frozenset(),
-                                    max_cycles=NEW_TOKENS),
-        lambda: e.generate(prompt),
+                                    max_cycles=NEW_TOKENS, attn_impl=e.attn_impl, filters=filters),
+        lambda: e.generate(prompt, temperature=temperature, top_k=filters.top_k if filters else 0,
+                           top_p=filters.top_p if filters else 1.0),
     )
     print(json.dumps(spec), flush=True)
     return 0

@@ -118,10 +118,15 @@ def test_spec_generate_api_matches_engine():
 def test_unported_options_raise():
     engine = _make_engine()
     with pytest.raises(NotImplementedError):
-        engine.generate(np.asarray([[1, 2]]), top_k=5)
-    with pytest.raises(NotImplementedError):
         SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
                    max_new_tokens=4, prefill_chunk=16, device="cpu")
+    with pytest.raises(NotImplementedError):
+        SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
+                   max_new_tokens=4, attn_impl="fused", device="cpu")
+    # top-k / top-p are ported (tests/test_torch_sampling.py); a top_k wider
+    # than the engine's exact pool is refused, as in dflash_tpu
+    with pytest.raises(ValueError):
+        engine.generate(np.asarray([[1, 2]]), temperature=1.0, top_k=engine.topk_pool + 1)
     # kv_quant is ported (tests/test_torch_quant.py)
     assert SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
                       max_new_tokens=4, kv_quant=True, device="cpu").kv_quant

@@ -24,6 +24,7 @@ import sys
 import dflash_tpu_torch, dflash_tpu_torch.convert, dflash_tpu_torch.kernels._build
 import dflash_tpu_torch.kernels.prefill_flash, dflash_tpu_torch.kernels.verify_fused
 import dflash_tpu_torch.kernels.matmul_q, dflash_tpu_torch.quant
+import dflash_tpu_torch.kernels.filter_stats, dflash_tpu_torch.kernels.attention
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "dflash_tpu" or m.startswith("dflash_tpu."))

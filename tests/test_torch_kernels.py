@@ -9,7 +9,11 @@ atol 1e-4, rtol 1e-5 for both x dtypes (every product of a bf16 or f32 value
 and an int8 value is exact in f32; only how the f32 sums are ordered and, on
 the tensor cores, rounded differs).
 The int8-ctx branch of ``verify_fused`` and the int8 matmul's CPU side are in
-tests/test_torch_quant.py.
+tests/test_torch_quant.py; ``filter_stats`` and ``verify_attention`` (the
+kernel module ``attention``) are held against JAX in
+tests/test_torch_sampling.py and tests/test_torch_forward.py.  On the card:
+``filter_stats`` counts exact, masses and lse within atol 2e-6 (f32 sums of
+up to 151,936 terms taken in another order).
 
 JAX is imported inside the tests that use it: the card's machine has no JAX,
 and runs this file's card test alone with
@@ -20,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from dflash_tpu_torch.kernels import matmul_q, prefill_flash, verify_fused
+from dflash_tpu_torch.kernels import attention, filter_stats, matmul_q, prefill_flash, verify_fused
 from dflash_tpu_torch.cache.kv import quantize_rows
 
 torch.set_num_threads(2)
@@ -216,3 +220,44 @@ def test_cuda_verify_int8_ctx_matches_plain(dtype):
         assert verify_fused.fused_ctx_block_attention.launches_int8 == before + 1
         ref = verify_fused.plain(q, kq, vq, bk, bv, ctx_len, mask, scale, ks, vs)
         torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_filter_stats_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for N, V, T in [(1, 151936, 16), (16, 151936, 32), (3, 1000, 64), (2, 1025, 5)]:
+        x = torch.randn((N, V), generator=g, device="cuda") * 3.0
+        x[:, :40] = 1.5  # ties
+        bits = filter_stats.ordered_bits(x)
+        cols = torch.randint(0, V, (N, T), generator=g, device="cuda")
+        thr = torch.gather(bits, 1, cols)
+        thr[:, 0] = 0xFFFFFFFF
+        thr[:, 1] = bits.amin(dim=1) - 1
+        before = filter_stats.filter_stats.launches
+        got = filter_stats.filter_stats(x, thr)
+        assert filter_stats.filter_stats.launches == before + 1
+        ref = filter_stats.plain(x, thr)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        for a, b in zip(got[2:], ref[2:]):
+            torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_verify_attention_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    T = 1024
+    for B, start in [(16, 0), (16, 1), (16, 700), (16, T - 16), (1, 0), (1, T - 1), (5, 77)]:
+        q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
+        before = attention.verify_attention.launches
+        out = attention.verify_attention(q, k, v, start, B)
+        assert attention.verify_attention.launches == before + 1
+        torch.testing.assert_close(out.float(), attention.plain(q, k, v, start, B).float(), **_tol(dtype))
+        k[:, start + B:], v[:, start + B:] = float("nan"), float("nan")  # past the frontier: never read
+        assert torch.equal(attention.verify_attention(q, k, v, start, B), out)
