@@ -14,7 +14,8 @@ Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
   2. build: every CUDA kernel from dflash_tpu_torch/kernels/csrc, in parallel.
   3. kernels vs plain at the main path's shapes, bf16 and f32: verify_fused
-     (bf16/f32 ctx and int8 ctx; nh 32, n_kv 8, d 128), prefill_flash, and
+     (bf16/f32 ctx and int8 ctx; nh 32, n_kv 8, d 128), prefill_flash (S in
+     {128, 130, 640, 2048}), and
      matmul_int8 at every Qwen3-8B projection shape x S in {1, 16, 640}: max
      abs error against the plain PyTorch version, tolerance, kernel / plain /
      library times from CUDA events, and the bound max(bytes / 3.35 TB/s,
@@ -29,7 +30,8 @@ Phases, each fatal on failure (nothing is caught):
      computes these outputs); the keep sets of filtered_logits_topk_topp at
      full vocabulary, with the kernel's stats and with the plain version's,
      against a full-sort f64 keep rule; and verify_attention (bf16 and f32,
-     B in {16, 1}, start in {0, 1, 700, T - 16}, T = 1024, plus NaN K/V past
+     B in {16, 1}, start in {0, 1, 700, T - 16} and on both sides of the
+     bf16 kernel's first split boundary, T = 1024, each with NaN K/V past
      the frontier; yardstick scaled_dot_product_attention over the valid
      rows with the offset causal mask).
   4. exact parity, f32, Qwen3-8B at full width and depth, random weights from
@@ -356,10 +358,10 @@ def keep_set_case(top_k: int, top_p: float, g) -> dict:
     return res
 
 
-def verify_attention_case(dtype, B: int, start: int, g, nan_check: bool = False) -> dict:
+def verify_attention_case(dtype, B: int, start: int, g) -> dict:
     """verify_attention at one shape: q [1, B, nh, d], cache [1, T, n_kv, d],
-    T = PALLAS_T; ``nan_check``: K/V rows past start + B set to NaN must leave
-    the output finite and bit-equal."""
+    T = PALLAS_T; then K/V rows past start + B set to NaN must leave the
+    output finite and bit-equal."""
     T = PALLAS_T
     es = torch.tensor([], dtype=dtype).element_size()
     L = start + B
@@ -371,13 +373,11 @@ def verify_attention_case(dtype, B: int, start: int, g, nan_check: bool = False)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
-    nan_equal = None
-    if nan_check:
-        k2, v2 = k.clone(), v.clone()
-        k2[:, L:], v2[:, L:] = float("nan"), float("nan")
-        dirty = attention.verify_attention(q, k2, v2, start, B)
-        nan_equal = bool(torch.isfinite(dirty).all()) and torch.equal(dirty, out)
-        assert nan_equal, "verify_attention read K/V past the frontier"
+    k2, v2 = k.clone(), v.clone()
+    k2[:, L:], v2[:, L:] = float("nan"), float("nan")
+    dirty = attention.verify_attention(q, k2, v2, start, B)
+    nan_equal = bool(torch.isfinite(dirty).all()) and torch.equal(dirty, out)
+    assert nan_equal, "verify_attention read K/V past the frontier"
     scale = D ** -0.5
     mask = torch.arange(L, device="cuda")[None, :] <= start + torch.arange(B, device="cuda")[:, None]
     lib = [(s[0][0].transpose(0, 1)[None], s[1][0, :L].transpose(0, 1)[None].contiguous(),
@@ -620,7 +620,7 @@ def main() -> int:
             for ctx_len in (0, 1, 700, T - 16):
                 cases.append(verify_case(dtype, B, all_true, ctx_len, T, g))
                 log("[kernel] " + json.dumps(cases[-1]))
-        for S in (128, 640, 2048):
+        for S in (128, 130, 640, 2048):
             cases.append(prefill_case(dtype, S, g))
             log("[kernel] " + json.dumps(cases[-1]))
     int8pack = int8pack_runs()
@@ -641,9 +641,9 @@ def main() -> int:
         log("[keep-set] " + json.dumps(keep_set_case(top_k, top_p, g)))
     for dtype in (torch.bfloat16, torch.float32):
         for B in (BLOCK, 1):
-            for start in (0, 1, 700, PALLAS_T - 16):
-                nan_check = dtype == torch.bfloat16 and B == BLOCK and start == 700
-                cases.append(verify_attention_case(dtype, B, start, g, nan_check))
+            edge = attention.KEY_TILE  # the first split boundary of the bf16 kernel
+            for start in sorted({0, 1, 700, PALLAS_T - 16, edge - B, edge - B + 1, edge - B // 2, edge}):
+                cases.append(verify_attention_case(dtype, B, start, g))
                 log("[kernel] " + json.dumps(cases[-1]))
 
     # phase 4: exact parity through the kernels, f32, on one set of weights:

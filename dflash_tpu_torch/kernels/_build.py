@@ -81,7 +81,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     failed = []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        build_logs[n] = "\n".join(line for line in out.splitlines() if "ptxas" in line)
+        build_logs[n] = "\n".join(line for line in out.splitlines() if "ptxas" in line or "spill" in line)
         if proc.returncode != 0:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
             continue

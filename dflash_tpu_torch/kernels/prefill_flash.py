@@ -9,12 +9,19 @@ mask computes it.  It runs 36 times per target prefill.
 What bounds it on the H100: operations, for a long prompt.  A call does
 ~2 * nh * S^2 * d flops (half of the square, two products) and must move q,
 k, v and the output once: in bf16 that is ~800 flops a byte at S = 2048,
-above the card's ~295 flop/byte balance point, and ~260 at S = 640.  What the design does about it: key
-tiles above the diagonal are neither loaded nor computed (half the square),
-the [S, S] scores never leave the block, and the softmax is online, so there
-is one pass.  The products run on FMA units from shared memory, far below the
-tensor cores' rate: ``mma``/``wgmma`` on bf16 tiles, a block that serves all
-g query heads of a kv head, and ``cp.async``/TMA staging are later work.
+above the card's ~295 flop/byte balance point, and ~260 at S = 640.  So the
+products must run on the tensor cores.  What the bf16 design does about it
+(``csrc/attn_mma.cuh``, FlashAttention-2 shaped): QK^T and PV run as
+``mma.sync`` m16n8k16 bf16 tiles fed by ``ldmatrix``; a block of 4 warps
+serves all g query heads of a kv head (64 packed rows: 64 / g positions x g
+heads), so each 64-key K/V tile is staged once for the g heads, as bf16, by
+``cp.async`` two tiles deep; the online softmax stays on the accumulator
+fragments and P goes to the value product in registers.  Key tiles above the
+diagonal are neither loaded nor computed and only the diagonal tile is
+masked; the [S, S] scores never leave the block.  One launch per call.  f32
+keeps the FMA walk of ``csrc/attn_tile.cuh`` (one query head a block):
+tensor cores would mean TF32, too coarse for the f32 tolerance and the exact
+f32 spec == AR run.
 
 The kernel takes any S (the ragged last tile is masked) and head_dim 64 or
 128; the TPU's ``S % 128`` / ``d % 128`` gate and its measured S >= 512
@@ -64,6 +71,8 @@ def flash_prefill_attention(
         )
     if d not in (64, 128) or nh % n_kv:
         raise ValueError(f"kernel takes head_dim 64/128 and nh % n_kv == 0, got d={d} nh={nh} n_kv={n_kv}")
+    if q.dtype == torch.bfloat16 and nh // n_kv > 64:
+        raise ValueError(f"the bf16 kernel packs the g query heads of a kv head into 64 rows, got g={nh // n_kv}")
     out = torch.empty((1, S, nh * d), dtype=q.dtype, device=q.device)
     ptrs = _build.checked_ptrs("flash_prefill_attention", q, k, v, out)
     fn = _build.function("prefill_flash", "dflash_prefill_flash", _ARGTYPES)

@@ -4,10 +4,15 @@ bit for bit: shows that a change to a kernel source left a branch's numbers
 exactly as they were.  Needs an NVIDIA GPU.
 
     python scripts/torch_kernel_outputs.py save OUT.pt     # from a checkout's root
-    python scripts/torch_kernel_outputs.py compare A.pt B.pt
+    python scripts/torch_kernel_outputs.py compare A.pt B.pt [PREFIX ...]
 
-Covers the bf16/f32 branch of verify_fused and prefill_flash at the main
-path's head shapes (nh 32, n_kv 8, d 128).
+``save`` imports the kernels of the checkout it runs from, so one copy of
+this script saves both sides.  ``compare`` reports every entry and fails
+unless all are bitwise equal, leaving out the entries whose names start with
+a PREFIX given (the branches the change meant to move).
+
+Covers, at the main path's head shapes (nh 32, n_kv 8, d 128), bf16 and f32:
+verify_fused (float ctx and int8 ctx), prefill_flash and verify_attention.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import torch
 
 
 def outputs() -> dict:
-    from dflash_tpu_torch.kernels import prefill_flash, verify_fused
+    from dflash_tpu_torch.cache.kv import quantize_rows
+    from dflash_tpu_torch.kernels import attention, prefill_flash, verify_fused
 
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {}
@@ -35,6 +41,15 @@ def outputs() -> dict:
         for S in (128, 640):
             q, k, v = randn(1, S, 32, 128), randn(1, S, 8, 128), randn(1, S, 8, 128)
             res[f"prefill_{dtype}_{S}"] = prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5).cpu()
+        for B, T, ctx_len in ((16, 785, 700), (1, 785, 700)):
+            q, bk, bv = randn(1, B, 32, 128), randn(1, B, 8, 128), randn(1, B, 8, 128)
+            (kq, ks), (vq, vs) = quantize_rows(randn(1, T, 8, 128)), quantize_rows(randn(1, T, 8, 128))
+            mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+            res[f"verify_int8_{dtype}_{B}_{ctx_len}"] = verify_fused.fused_ctx_block_attention(
+                q, kq, ks, vq, vs, bk, bv, ctx_len, mask, 128 ** -0.5).cpu()
+        for B, T, start in ((16, 1024, 700), (1, 1024, 700)):
+            q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
+            res[f"verify_attention_{dtype}_{B}_{start}"] = attention.verify_attention(q, k, v, start, B).cpu()
     return res
 
 
@@ -47,10 +62,12 @@ def main() -> int:
         torch.save(outputs(), sys.argv[2])
         return 0
     a, b = torch.load(sys.argv[2]), torch.load(sys.argv[3])
+    may_differ = tuple(sys.argv[4:])
     assert a.keys() == b.keys(), (sorted(a), sorted(b))
     same = {k: torch.equal(a[k], b[k]) for k in a}
-    print({"bitwise_equal": same, "all": all(same.values())})
-    return 0 if all(same.values()) else 2
+    held = {k: v for k, v in same.items() if not (may_differ and k.startswith(may_differ))}
+    print({"bitwise_equal": same, "may_differ": list(may_differ), "held_equal": all(held.values())})
+    return 0 if all(held.values()) else 2
 
 
 if __name__ == "__main__":

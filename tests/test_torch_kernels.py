@@ -131,6 +131,23 @@ def test_int8_wrappers_raise_on_a_device_without_a_kernel():
             q, kq, ks, kq, None, kv, kv, 4, torch.ones(16, 16, dtype=torch.bool), 0.125)
 
 
+@pytest.mark.parametrize("B,start", [(16, 0), (16, 700), (1, 700), (5, 77), (16, 4000), (64, 30000)])
+def test_verify_attention_split_policy(B, start):
+    """The bf16 verify kernel's splits: the fewest 64-key tiles per split
+    that keep the grid (splits x kv heads x 64-row groups) within one wave
+    of blocks, and a workspace exactly when there is more than one split."""
+    nh, n_kv, d = 32, 8, 128
+    tiles = attention.split_tiles(B, nh, n_kv, start)
+    n_tiles = -(-(start + B) // attention.KEY_TILE)
+    n_splits = -(-n_tiles // tiles)
+    units = n_kv * -(-(nh // n_kv * B) // 64)
+    assert tiles >= 1 and n_splits * units < attention.SM_COUNT + units
+    if tiles > 1:  # one tile fewer per split would overfill the wave
+        assert n_tiles * units > (tiles - 1) * attention.SM_COUNT
+    ws = attention.workspace_floats(B, nh, n_kv, start, d)
+    assert ws == (0 if n_splits == 1 else n_splits * nh * B * (d + 2))
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version.
 # ---------------------------------------------------------------------------
@@ -159,9 +176,11 @@ def test_cuda_kernels_match_plain(dtype):
         out = verify_fused.fused_ctx_block_attention(q, ck, None, cv, None, bk, bv, ctx_len, mask, scale)
         ref = verify_fused.plain(q, ck, cv, bk, bv, ctx_len, mask, scale)
         torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
-    for S in (128, 200, 640):
+    for S in (1, 16, 128, 130, 200, 640, 2048):  # ragged against the row and key tiles, and long
         q, k, v = randn(1, S, 32, 128), randn(1, S, 8, 128), randn(1, S, 8, 128)
+        before = prefill_flash.flash_prefill_attention.launches
         out = prefill_flash.flash_prefill_attention(q, k, v, scale)
+        assert prefill_flash.flash_prefill_attention.launches == before + 1
         torch.testing.assert_close(out.float(), prefill_flash.plain(q, k, v, scale).float(), **_tol(dtype))
 
 
@@ -244,6 +263,17 @@ def test_cuda_filter_stats_matches_plain():
             torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
 
 
+def _split_starts(B, T):
+    """Starts on both sides of a split boundary of the bf16 kernel (the
+    block ending at it, just past it, straddling it, starting on it): the
+    first boundary, and the last one below a full cache of T rows; plus the
+    first split alone and the last split of a full cache."""
+    span = attention.KEY_TILE * attention.split_tiles(B, 32, 8, T - B)
+    edges = (attention.KEY_TILE, (T - B - 1) // span * span)
+    starts = {0, T - B} | {s for e in edges for s in (e - B, e - B + 1, e - B // 2, e)}
+    return sorted(s for s in starts if 0 <= s <= T - B)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_verify_attention_matches_plain(dtype):
@@ -252,12 +282,48 @@ def test_cuda_verify_attention_matches_plain(dtype):
     dtype = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(4)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    T = 1024
-    for B, start in [(16, 0), (16, 1), (16, 700), (16, T - 16), (1, 0), (1, T - 1), (5, 77)]:
+    cases = [(1024, B, start) for B, start in [(16, 0), (16, 1), (16, 700), (16, 1008), (1, 0), (1, 1023), (5, 77)]]
+    cases += [(T, B, start) for T in (1024, 4096) for B in (1, 5, 16) for start in _split_starts(B, T)]
+    for T, B, start in cases:
         q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
         before = attention.verify_attention.launches
         out = attention.verify_attention(q, k, v, start, B)
         assert attention.verify_attention.launches == before + 1
-        torch.testing.assert_close(out.float(), attention.plain(q, k, v, start, B).float(), **_tol(dtype))
+        torch.testing.assert_close(out.float(), attention.plain(q, k, v, start, B).float(), **_tol(dtype),
+                                   msg=f"T {T} B {B} start {start}")
         k[:, start + B:], v[:, start + B:] = float("nan"), float("nan")  # past the frontier: never read
-        assert torch.equal(attention.verify_attention(q, k, v, start, B), out)
+        assert torch.equal(attention.verify_attention(q, k, v, start, B), out), (T, B, start)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_attention_f32_rows_do_not_depend_on_B():
+    """f32: each row of a B = 16 call equals, bit for bit, a B = 1 call at the
+    same position (what the exact spec == AR run on the "pallas" path needs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    T = 1024
+    q = torch.randn((1, 16, 32, 128), generator=g, device="cuda")
+    k, v = torch.randn((1, T, 8, 128), generator=g, device="cuda"), torch.randn((1, T, 8, 128), generator=g, device="cuda")
+    for start in (0, 49, 700, T - 16):
+        full = attention.verify_attention(q, k, v, start, 16)
+        for r in range(16):
+            one = attention.verify_attention(q[:, r:r + 1].contiguous(), k, v, start + r, 1)
+            assert torch.equal(one[0, 0], full[0, r]), (start, r)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_is_deterministic():
+    """bf16: two calls on the same inputs give the same bits (the split merge
+    runs in a fixed order; no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    for T, B, start in ((1024, 16, 700), (1024, 1, 700), (4096, 16, 4000)):
+        q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
+        assert torch.equal(attention.verify_attention(q, k, v, start, B),
+                           attention.verify_attention(q, k, v, start, B))
+    q, k, v = randn(1, 640, 32, 128), randn(1, 640, 8, 128), randn(1, 640, 8, 128)
+    assert torch.equal(prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5),
+                       prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5))
