@@ -14,8 +14,10 @@ Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
   2. build: every CUDA kernel from dflash_tpu_torch/kernels/csrc, in parallel.
   3. kernels vs plain at the main path's shapes, bf16 and f32: verify_fused
-     (bf16/f32 ctx and int8 ctx; nh 32, n_kv 8, d 128), prefill_flash (S in
-     {128, 130, 640, 2048}), and
+     (bf16/f32 ctx and int8 ctx; nh 32, n_kv 8, d 128; ctx_len in {0, 1,
+     700, T - 16} and on both sides of the bf16 kernel's first split
+     boundary, each with NaN ctx K/V, or int8 scales, past ctx_len),
+     prefill_flash (S in {128, 130, 640, 2048}), and
      matmul_int8 at every Qwen3-8B projection shape x S in {1, 16, 640}: max
      abs error against the plain PyTorch version, tolerance, kernel / plain /
      library times from CUDA events, and the bound max(bytes / 3.35 TB/s,
@@ -161,7 +163,9 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g, int8: bool = False) -> dict:
     """verify_fused at one shape; ``int8``: the int8-ctx branch (ctx K/V
-    quantized with the cache's quantize_rows, f32 scales per row and head)."""
+    quantized with the cache's quantize_rows, f32 scales per row and head).
+    Then the ctx K/V past ctx_len (int8: their scales) set to NaN must leave
+    the output finite and bit-equal."""
     es = torch.tensor([], dtype=dtype).element_size()
     ctx_es = 1 if int8 else es
     scale_bytes = 2 * NKV * 4 if int8 else 0  # per ctx row
@@ -193,6 +197,13 @@ def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g, int8: bo
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    dirty = [t.clone() if t is not None else None for t in sets[0]]
+    for i in ((2, 4) if int8 else (1, 3)):  # the scales, or the K/V rows
+        dirty[i][:, ctx_len:] = float("nan")
+    dirty_out = kernel(dirty)
+    nan_equal = bool(torch.isfinite(dirty_out).all()) and torch.equal(dirty_out, out)
+    assert nan_equal, "verify_fused read the ctx past ctx_len"
+    del dirty, dirty_out
 
     def sdpa_inputs(q, ck, cks, cv, cvs, bk, bv):
         if int8:  # dequantized beforehand: the yardstick reads q's dtype
@@ -215,7 +226,8 @@ def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g, int8: bo
     return dict(kernel="verify_fused_int8_ctx" if int8 else "verify_fused",
                 dtype=str(dtype).split(".")[-1], B=B,
                 mask="all_true" if all_true else "causal", T=T, ctx_len=ctx_len,
-                max_abs_err=err, tol=TOL[dtype], kernel_ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, tol=TOL[dtype], nan_past_frontier_bit_equal=nan_equal,
+                kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -607,17 +619,24 @@ def main() -> int:
     _build.build_all()
     log(f"[build] {_build.sources()} built in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:72]  # the mangled kernel name
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
 
     # phase 3: kernels vs plain
     g = torch.Generator(device="cuda").manual_seed(0)
     T = PROMPT_CAP + TIMING_NEW + BLOCK + 1  # the timing engine's total_len
+    # ctx_len: none, one row, both sides of the bf16 kernel's first split
+    # boundary (one 64-key tile a split at these sizes), the main path's 700, full
+    edge = verify_fused.KEY_TILE * verify_fused.split_tiles(BLOCK, NH, NKV, verify_fused.KEY_TILE)
+    ctx_lens = (0, 1, edge - 1, edge, edge + 1, 700, T - 16)
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for B, all_true in ((16, False), (16, True), (1, False)):
-            for ctx_len in (0, 1, 700, T - 16):
+            for ctx_len in ctx_lens:
                 cases.append(verify_case(dtype, B, all_true, ctx_len, T, g))
                 log("[kernel] " + json.dumps(cases[-1]))
         for S in (128, 130, 640, 2048):
@@ -626,7 +645,7 @@ def main() -> int:
     int8pack = int8pack_runs()
     for dtype in (torch.bfloat16, torch.float32):
         for B, all_true in ((16, False), (16, True), (1, False)):
-            for ctx_len in (0, 1, 700, T - 16):
+            for ctx_len in ctx_lens:
                 cases.append(verify_case(dtype, B, all_true, ctx_len, T, g, int8=True))
                 log("[kernel] " + json.dumps(cases[-1]))
         for K, N in MM_SHAPES:

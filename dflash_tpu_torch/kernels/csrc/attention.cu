@@ -23,7 +23,9 @@
 // workspace and a second launch merges the splits of each row in split order
 // (no atomics), so every run gives the same bits.  A row that a split masks
 // entirely (l = 0) merges with weight 0.  The merge is a programmatic
-// dependent launch: it is scheduled while the split grid runs.
+// dependent launch: it is scheduled while the split grid runs.  The epilogue
+// and the merge (store_split, merge_splits) are attn_mma.cuh's, shared with
+// verify_fused.cu.
 //
 // f32: the single-part case of verify_fused.cu: the same tile walk
 // and f32 online softmax (attn_tile.cuh), without the block part.  Grid
@@ -106,62 +108,7 @@ verify_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bflo
   mma::walk(sm, w, (key_end - key0 + kMmaKeys - 1) / kMmaKeys, key0, scale_log2, stage_kv,
             [&](int i) { return key0 + (i + 1) * kMmaKeys - 1 > start; });  // reaches the block's keys
   w.finish();
-  const int t = threadIdx.x & 3;
-  const int r0 = p_base + 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = r0 + 8 * h;
-    if (p >= M) continue;
-    if (ws == nullptr) {
-      w.store(out + (p % B) * q_stride + (hk * g + p / B) * D, h);
-      continue;
-    }
-    const long row = ((long)split * n_kv + hk) * M + p;
-    float* acc = ws + row * D;
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<float2*>(acc + 8 * c + 2 * t) = make_float2(w.o[c][2 * h], w.o[c][2 * h + 1]);
-    if (t == 0) {
-      float* ml = ws + (long)gridDim.x * n_kv * M * D + 2 * row;
-      ml[0] = w.m[h];
-      ml[1] = w.l[h];
-    }
-  }
-}
-
-// One warp per (kv head, packed row): the splits' partials in split order.
-template <int D>
-__global__ void __launch_bounds__(128)
-verify_attention_merge_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int B,
-                              int nh, int n_kv, int n_splits) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split kernel's partials are written
-  const int g = nh / n_kv, M = g * B;
-  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);  // hk * M + p
-  if (row >= n_kv * M) return;
-  const int hk = row / M, p = row % M, lane = threadIdx.x & 31;
-  const long per_split = (long)n_kv * M;
-  const float* ml = ws + n_splits * per_split * D;
-  float m_max = mma::kNeg;
-  for (int s = 0; s < n_splits; ++s) {
-    const float* x = ml + 2 * (s * per_split + row);
-    if (x[1] > 0.f) m_max = fmaxf(m_max, x[0]);
-  }
-  float acc[D / 32], den = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float* x = ml + 2 * (s * per_split + row);
-    if (!(x[1] > 0.f)) continue;  // every key of the split masked for this row: weight 0
-    const float wgt = exp2f(x[0] - m_max);
-    den += wgt * x[1];
-    const float* a = ws + (s * per_split + row) * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[c] += wgt * a[lane + 32 * c];
-  }
-  const float inv = 1.f / fmaxf(den, 1e-30f);
-  __nv_bfloat16* dst = out + (long)(p % B) * nh * D + (hk * g + p / B) * D;
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) dst[lane + 32 * c] = __float2bfloat16(acc[c] * inv);
+  mma::store_split(w, out, ws, p_base, B, nh, n_kv, hk);
 }
 
 template <typename T, int D>
@@ -201,20 +148,7 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v, void*
       B, nh, n_kv, start, split_tiles, scale * mma::kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || ws == nullptr) return err;
-  // Programmatic dependent launch: the merge grid is scheduled while the
-  // split grid runs and waits in griddepcontrol.wait for its results.
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_kv * M + 3) / 4);
-  cfg.blockDim = dim3(128);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, verify_attention_merge_kernel<D>, (const float*)ws, (__nv_bfloat16*)out,
-                           B, nh, n_kv, n_splits);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return mma::launch_merge<D>(ws, (__nv_bfloat16*)out, B, nh, n_kv, n_splits, stream);
 }
 
 }  // namespace dflash

@@ -1,6 +1,8 @@
-// Shared building blocks of the port's two attention kernels (prefill_flash.cu,
-// verify_fused.cu): one thread block owns RQ query rows of ONE query head and
-// walks key tiles of 32 rows through shared memory with an f32 online softmax.
+// FMA building blocks of the f32 branches of the port's three attention
+// kernels (prefill_flash.cu, verify_fused.cu, attention.cu; their bf16
+// branches run on attn_mma.cuh): one thread block owns RQ query rows of ONE
+// query head and walks key tiles of 32 rows through shared memory with an f32
+// online softmax.
 //
 // Layout inside a block of 4 warps: warp w owns query rows [w*RPW, (w+1)*RPW);
 // in the score step lane j computes the scores of key j of the tile for those
@@ -21,7 +23,6 @@
 // softmax scale and 1.0, which leaves every number as it was.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,24 +37,11 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
 
-// 16 bytes of T -> floats: 4 f32 or 8 bf16 values.
+// 16 bytes of f32 -> 4 floats.
 __device__ __forceinline__ void unpack16(const float* src, float* dst) {
   const float4 raw = *reinterpret_cast<const float4*>(src);
   dst[0] = raw.x; dst[1] = raw.y; dst[2] = raw.z; dst[3] = raw.w;
-}
-__device__ __forceinline__ void unpack16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dst[2 * i] = __uint_as_float(w[i] << 16);
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // 16 int8 values -> exact floats.

@@ -12,27 +12,39 @@ step (B = 1).
 What bounds it on the H100: bytes.  Per call it must read the valid ctx K/V
 rows (2 * ctx_len * n_kv * d elements) and does ~4 * R * nh * ctx_len * d
 flops on them, about R * g = 64 flops a byte at B = 16 in bf16: far below the
-card's ~295 flop/byte balance point.  What the design does about it: ctx rows
-at or past the frontier are never read (the Pallas kernel's frontier-clamped
-index map), the [rows, T] scores never leave the block (registers and shared
-memory), and both parts share one online softmax, so there is no merge pass
-and no second read.  What it does not do yet: a block serves one query head,
-so each kv head's rows are read by its g = 4 query heads (from L2), and the
-products run on FMA units, not tensor cores.  ``cp.async`` staging, split-K
-over the ctx for more blocks, and ``mma``/``wgmma`` are later work.
+card's ~295 flop/byte balance point.  At the main path's sizes (ctx ~700)
+those bytes are ~3 MB, under a microsecond at full rate, so what a call costs
+is latency: how many SMs share the read, and how long each waits on its
+loads.  What the bf16 design does about it (``csrc/attn_mma.cuh``, the design
+of ``attention.py``'s kernel with a second part): the g query heads of a kv
+head are served together (packed into the M dimension of ``mma.sync``
+tiles), so each K/V tile is read once for all g heads; the ctx keys below
+``ctx_len`` are split over blocks (:func:`split_tiles`, about one wave of 132
+blocks with the block part's own split), each split staging its 64-key tiles
+with ``cp.async`` two deep; the R block keys are one more split, masked by
+the routing mask; and a second launch merges the splits in a fixed order, so
+the bits do not change from run to run.  A bf16 call is 2 device launches,
+or 1 when ``ctx_len == 0`` (the block split alone).  Ctx rows at or past the
+frontier are never loaded (the Pallas kernel's frontier-clamped index map),
+and the scores never leave the block.
 
 The int8 ctx branch (the int8 KV cache of ``kv_quant``): ctx K/V int8
 [1, T, n_kv, d] with f32 scales [1, T, n_kv] per row and kv head, the block
-K/V in q's dtype.  16 int8 values arrive per 16-byte load and are staged as
-exact floats; the key scale multiplies the score, ``s * (ks * scale)``, and
-the value scale the probability after ``l`` has summed it unscaled, as the
-Pallas kernel orders it.  Its bound is half the bf16 ctx bytes plus the
-scales.  It runs 36 times per verify and per AR step of a ``kv_quant`` engine;
-the draft's context cache stays in the activation dtype, so the draft keeps
-the bf16/f32 branch.  Launches are counted per branch.
+K/V in q's dtype.  In bf16 the int8 rows are staged with ``cp.async`` (16
+values per 16 bytes) and widened exactly to bf16 in shared memory; the key
+scale multiplies the score, ``s * (ks * scale)``, and the value scale the
+probability after ``l`` has summed it unscaled, before p is rounded to bf16
+for the value product, as the Pallas kernel orders it.  Its bound is half
+the bf16 ctx bytes plus the scales.  It runs 36 times per verify and per AR
+step of a ``kv_quant`` engine; the draft's context cache stays in the
+activation dtype, so the draft keeps the bf16/f32 branch.  Launches are
+counted per branch, one per call whatever the device launches.
 
-The kernel takes any cache length T (the TPU's ``T % 128`` gate does not
-apply) and head_dim 64 or 128.
+f32 (either ctx) keeps the FMA walk of ``csrc/attn_tile.cuh``, one launch:
+tensor cores would mean TF32, and the exact f32 spec == AR run needs a row's
+result not to depend on B, which that walk gives.  The kernel takes any
+cache length T (the TPU's ``T % 128`` gate does not apply) and head_dim 64
+or 128.
 """
 
 from __future__ import annotations
@@ -43,11 +55,36 @@ from typing import Optional
 import torch
 
 from dflash_tpu_torch.kernels import _build
+from dflash_tpu_torch.kernels.attention import KEY_TILE, SM_COUNT
 from dflash_tpu_torch.ops.attention import gqa_attention_quant_ctx_plus_block
 
-_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + _TAIL
-_ARGTYPES_INT8 = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + _TAIL
+_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + _TAIL
+_ARGTYPES_INT8 = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + _TAIL
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_tiles(R: int, nh: int, n_kv: int, ctx_len: int) -> int:
+    """64-key ctx tiles per split of the bf16 kernel: the fewest that keep
+    the ctx splits (x n_kv x row groups of 64 packed rows) within the blocks
+    of one wave of SM_COUNT that the block part's split leaves."""
+    units = n_kv * _cdiv(nh // n_kv * R, 64)
+    return max(1, _cdiv(_cdiv(ctx_len, KEY_TILE) * units, max(1, SM_COUNT - units)))
+
+
+def n_splits(R: int, nh: int, n_kv: int, ctx_len: int) -> int:
+    """Splits of a bf16 call: the ctx splits, plus one for the block keys."""
+    return _cdiv(_cdiv(ctx_len, KEY_TILE), split_tiles(R, nh, n_kv, ctx_len)) + 1
+
+
+def workspace_floats(R: int, nh: int, n_kv: int, ctx_len: int, d: int) -> int:
+    """f32 partials (acc, m, l per split and packed row) of a bf16 call; 0
+    when the block split is the only one (ctx_len == 0)."""
+    n = n_splits(R, nh, n_kv, ctx_len)
+    return 0 if n == 1 else n * nh * R * (d + 2)
 
 
 def plain(
@@ -101,7 +138,8 @@ def fused_ctx_block_attention(
     scale: float,
 ) -> torch.Tensor:
     """Returns [C, B, nh * d] in q's dtype.  CPU tensors take :func:`plain`;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel (bf16: with a workspace from
+    ``torch.empty`` when the keys are split) or raise."""
     quant = ctx_ks is not None
     if quant != (ctx_vs is not None):
         raise ValueError("int8 ctx needs both key and value scales")
@@ -122,7 +160,11 @@ def fused_ctx_block_attention(
         raise ValueError(f"ctx_len {ctx_len} outside [0, {T}]")
     mask = routing_mask(blk_mask, C).to(q.device).contiguous()
     out = torch.empty((C, B, nh * d), dtype=q.dtype, device=q.device)
-    tail = (R, nh, n_kv, int(ctx_len), float(scale))
+    tiles, n_ws = 0, 0
+    if q.dtype == torch.bfloat16:
+        tiles, n_ws = split_tiles(R, nh, n_kv, ctx_len), workspace_floats(R, nh, n_kv, ctx_len, d)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
+    tail = (None if ws is None else ws.data_ptr(), R, nh, n_kv, int(ctx_len), tiles, float(scale))
     if quant:
         q_ptr, bk_ptr, bv_ptr, out_ptr = _build.checked_ptrs(
             "fused_ctx_block_attention", q, blk_k, blk_v, out)

@@ -4,7 +4,8 @@ Pallas kernel run in interpret mode, on the shapes the JAX kernel tests use
 kernel against its plain version on the card (skipped without one).
 
 Tolerances: the JAX kernel tests' bars, f32 atol 2e-5 (verify) and 5e-5
-(prefill); on the card bf16 atol = rtol = 2e-2.  ``matmul_int8`` on the card:
+(prefill); on the card f32 atol 5e-5 and bf16 atol = rtol = 2e-2 (bf16 p
+and bf16 outputs; sums in another order, split partials merged in f32).  ``matmul_int8`` on the card:
 atol 1e-4, rtol 1e-5 for both x dtypes (every product of a bf16 or f32 value
 and an int8 value is exact in f32; only how the f32 sums are ordered and, on
 the tensor cores, rounded differs).
@@ -148,12 +149,102 @@ def test_verify_attention_split_policy(B, start):
     assert ws == (0 if n_splits == 1 else n_splits * nh * B * (d + 2))
 
 
+@pytest.mark.parametrize("R,ctx_len", [(16, 0), (16, 700), (1, 700), (32, 77), (16, 4000), (64, 30000),
+                                       (256, 700)])
+def test_verify_fused_split_policy(R, ctx_len):
+    """The bf16 verify_fused kernel's splits: the fewest 64-key ctx tiles per
+    split that keep the grid (ctx splits + the block part's split, x kv heads
+    x 64-row groups) within about one wave of blocks; ctx_len 0 leaves the
+    block split alone, with no workspace."""
+    nh, n_kv, d = 32, 8, 128
+    tiles = verify_fused.split_tiles(R, nh, n_kv, ctx_len)
+    n_tiles = -(-ctx_len // attention.KEY_TILE)
+    n_ctx_splits = -(-n_tiles // tiles)
+    units = n_kv * -(-(nh // n_kv * R) // 64)
+    budget = max(1, attention.SM_COUNT - units)  # blocks left for the ctx splits
+    assert verify_fused.n_splits(R, nh, n_kv, ctx_len) == n_ctx_splits + 1
+    assert tiles >= 1 and n_ctx_splits * units < budget + units
+    if tiles > 1:  # one tile fewer per split would overfill the wave
+        assert n_tiles * units > (tiles - 1) * budget
+    if units < attention.SM_COUNT // 2:
+        assert (n_ctx_splits + 1) * units <= attention.SM_COUNT + units
+    ws = verify_fused.workspace_floats(R, nh, n_kv, ctx_len, d)
+    assert ws == (0 if ctx_len == 0 else (n_ctx_splits + 1) * nh * R * (d + 2))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_fused_cpu_tensors_take_plain(int8):
+    """CPU tensors, float or int8 ctx: the wrapper returns the plain
+    version's result and counts no launch on either branch."""
+    g = torch.Generator().manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    q, bk, bv = randn(2, 4, 8, 64), randn(2, 4, 2, 64), randn(2, 4, 2, 64)
+    ck, cv = randn(1, 40, 2, 64), randn(1, 40, 2, 64)
+    ks = vs = None
+    if int8:
+        (ck, ks), (cv, vs) = quantize_rows(ck), quantize_rows(cv)
+    mask = torch.tril(torch.ones(4, 4, dtype=torch.bool))
+    counts = (verify_fused.fused_ctx_block_attention.launches, verify_fused.fused_ctx_block_attention.launches_int8)
+    got = verify_fused.fused_ctx_block_attention(q, ck, ks, cv, vs, bk, bv, 33, mask, 0.125)
+    assert torch.equal(got, verify_fused.plain(q, ck, cv, bk, bv, 33, mask, 0.125, ks, vs))
+    assert (verify_fused.fused_ctx_block_attention.launches,
+            verify_fused.fused_ctx_block_attention.launches_int8) == counts
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version.
 # ---------------------------------------------------------------------------
 
 def _tol(dtype):
     return dict(atol=5e-5, rtol=0) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+
+
+def _fused_cases():
+    """(C, B, T, ctx_len, causal) of verify_fused on the card: ctx_len 0, 1 and
+    on both sides of the bf16 kernel's first split boundary (64), the main
+    path's 700, B 1 and 16, causal and all-true masks, C = 2 (R = 32), and
+    both sides of a split boundary of a long ctx (several tiles a split)."""
+    cases = [(1, 16, 300, 0, True), (1, 16, 300, 1, True), (1, 16, 300, 284, True), (1, 16, 300, 170, False),
+             (1, 1, 300, 299, True), (3, 16, 300, 77, True)]
+    edge = attention.KEY_TILE
+    cases += [(1, B, 785, ctx_len, causal) for B in (1, 16) for causal in (True, False)
+              for ctx_len in (0, 1, edge - 1, edge, edge + 1, 700)]
+    cases += [(2, 16, 785, ctx_len, True) for ctx_len in (0, edge + 1, 700)]
+    for ctx_len in (3840, 4000):
+        span = attention.KEY_TILE * verify_fused.split_tiles(16, 32, 8, ctx_len)
+        e = ctx_len // span * span
+        cases += [(1, 16, 4096, c, True) for c in (e - 1, e, e + 1)]
+    return cases
+
+
+def _check_fused_cases(dtype, int8, seed):
+    """verify_fused against its plain version at every _fused_cases shape, one
+    launch counted per call; then the ctx K/V (int8: their scales) past
+    ctx_len set to NaN must leave the output finite and bit-equal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    scale = 128 ** -0.5
+    counter = "launches_int8" if int8 else "launches"
+    for C, B, T, ctx_len, causal in _fused_cases():
+        q, bk, bv = randn(C, B, 32, 128), randn(C, B, 8, 128), randn(C, B, 8, 128)
+        ck, cv, ks, vs = randn(1, T, 8, 128), randn(1, T, 8, 128), None, None
+        if int8:
+            (ck, ks), (cv, vs) = quantize_rows(ck), quantize_rows(cv)
+        mask = torch.ones(B, B, dtype=torch.bool, device="cuda")
+        if causal:
+            mask = torch.tril(mask)
+        case = f"C {C} B {B} T {T} ctx_len {ctx_len} causal {causal}"
+        before = getattr(verify_fused.fused_ctx_block_attention, counter)
+        out = verify_fused.fused_ctx_block_attention(q, ck, ks, cv, vs, bk, bv, ctx_len, mask, scale)
+        assert getattr(verify_fused.fused_ctx_block_attention, counter) == before + 1
+        ref = verify_fused.plain(q, ck, cv, bk, bv, ctx_len, mask, scale, ks, vs)
+        torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype), msg=case)
+        if int8:  # past the frontier: never read
+            ks[:, ctx_len:], vs[:, ctx_len:] = float("nan"), float("nan")
+        else:
+            ck[:, ctx_len:], cv[:, ctx_len:] = float("nan"), float("nan")
+        dirty = verify_fused.fused_ctx_block_attention(q, ck, ks, cv, vs, bk, bv, ctx_len, mask, scale)
+        assert bool(torch.isfinite(dirty).all()) and torch.equal(dirty, out), case
 
 
 @pytest.mark.cuda
@@ -165,17 +256,7 @@ def test_cuda_kernels_match_plain(dtype):
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
     scale = 128 ** -0.5
-    for C, B, T, ctx_len, causal in [(1, 16, 300, 0, True), (1, 16, 300, 1, True),
-                                     (1, 16, 300, 284, True), (1, 16, 300, 170, False),
-                                     (1, 1, 300, 299, True), (3, 16, 300, 77, True)]:
-        q, bk, bv = randn(C, B, 32, 128), randn(C, B, 8, 128), randn(C, B, 8, 128)
-        ck, cv = randn(1, T, 8, 128), randn(1, T, 8, 128)
-        mask = torch.ones(B, B, dtype=torch.bool, device="cuda")
-        if causal:
-            mask = torch.tril(mask)
-        out = verify_fused.fused_ctx_block_attention(q, ck, None, cv, None, bk, bv, ctx_len, mask, scale)
-        ref = verify_fused.plain(q, ck, cv, bk, bv, ctx_len, mask, scale)
-        torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    _check_fused_cases(dtype, False, 10)
     for S in (1, 16, 128, 130, 200, 640, 2048):  # ragged against the row and key tiles, and long
         q, k, v = randn(1, S, 32, 128), randn(1, S, 8, 128), randn(1, S, 8, 128)
         before = prefill_flash.flash_prefill_attention.launches
@@ -222,23 +303,7 @@ def test_cuda_matmul_int8_matches_plain(dtype):
 def test_cuda_verify_int8_ctx_matches_plain(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    dtype = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    scale = 128 ** -0.5
-    for C, B, T, ctx_len, causal in [(1, 16, 300, 0, True), (1, 16, 300, 1, True),
-                                     (1, 16, 300, 284, True), (1, 16, 300, 170, False),
-                                     (1, 1, 300, 299, True), (3, 16, 300, 77, True)]:
-        q, bk, bv = randn(C, B, 32, 128), randn(C, B, 8, 128), randn(C, B, 8, 128)
-        (kq, ks), (vq, vs) = quantize_rows(randn(1, T, 8, 128)), quantize_rows(randn(1, T, 8, 128))
-        mask = torch.ones(B, B, dtype=torch.bool, device="cuda")
-        if causal:
-            mask = torch.tril(mask)
-        before = verify_fused.fused_ctx_block_attention.launches_int8
-        out = verify_fused.fused_ctx_block_attention(q, kq, ks, vq, vs, bk, bv, ctx_len, mask, scale)
-        assert verify_fused.fused_ctx_block_attention.launches_int8 == before + 1
-        ref = verify_fused.plain(q, kq, vq, bk, bv, ctx_len, mask, scale, ks, vs)
-        torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    _check_fused_cases(getattr(torch, dtype), True, 2)
 
 
 @pytest.mark.cuda
@@ -315,7 +380,8 @@ def test_cuda_verify_attention_f32_rows_do_not_depend_on_B():
 @pytest.mark.cuda
 def test_cuda_bf16_attention_is_deterministic():
     """bf16: two calls on the same inputs give the same bits (the split merge
-    runs in a fixed order; no atomics)."""
+    runs in a fixed order; no atomics): verify_attention, verify_fused (bf16
+    and int8 ctx) and prefill_flash."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -324,6 +390,12 @@ def test_cuda_bf16_attention_is_deterministic():
         q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
         assert torch.equal(attention.verify_attention(q, k, v, start, B),
                            attention.verify_attention(q, k, v, start, B))
+        bk, bv = randn(1, B, 8, 128), randn(1, B, 8, 128)
+        mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+        (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+        for ctx in ((k, None, v, None), (kq, ks, vq, vs)):
+            assert torch.equal(verify_fused.fused_ctx_block_attention(q, *ctx, bk, bv, start, mask, 128 ** -0.5),
+                               verify_fused.fused_ctx_block_attention(q, *ctx, bk, bv, start, mask, 128 ** -0.5))
     q, k, v = randn(1, 640, 32, 128), randn(1, 640, 8, 128), randn(1, 640, 8, 128)
     assert torch.equal(prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5),
                        prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5))
