@@ -18,10 +18,12 @@ Phases, each fatal on failure (nothing is caught):
      700, T - 16} and on both sides of the bf16 kernel's first split
      boundary, each with NaN ctx K/V, or int8 scales, past ctx_len),
      prefill_flash (S in {128, 130, 640, 2048}), and
-     matmul_int8 at every Qwen3-8B projection shape x S in {1, 16, 640}: max
-     abs error against the plain PyTorch version, tolerance, kernel / plain /
-     library times from CUDA events, and the bound max(bytes / 3.35 TB/s,
-     flops / peak) of the same work.  Library yardsticks, which the port
+     matmul_int8 at every Qwen3-8B projection shape x S in {1, 15, 16, 640}
+     (and 2048 for bf16 x), one [matmul] line each with its plan
+     (matmul_q.plan: variant, tile, K split): max abs error against the plain
+     PyTorch version, tolerance, kernel / plain / library times from CUDA
+     events, and the bound max(bytes / 3.35 TB/s, flops / peak) of the same
+     work.  Library yardsticks, which the port
      never calls: scaled_dot_product_attention (over K/V dequantized
      beforehand for the int8 ctx), torch.mm with the weight dequantized
      beforehand to x's dtype, and torch._weight_int8pack_mm where the
@@ -58,6 +60,7 @@ CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -103,6 +106,7 @@ PAD_TO = 512
 # (K, N) of every projection on the int8 path: wq/wo/draft fc, wk/wv,
 # gate/up, down, lm_head (N = V padded to PAD_TO).
 MM_SHAPES = ((H, NH * D), (H, NKV * D), (H, I), (I, H), (H, V))
+MM_LONG_S = 2048  # a long prompt: the wgmma variant's second grid shape
 BLOCK = 16
 PROMPT_LEN, PROMPT_CAP = 600, 640
 PARITY_NEW, TIMING_NEW = 64, 128
@@ -278,9 +282,16 @@ def matmul_case(dtype, K: int, N: int, S: int, g, int8pack: bool) -> dict:
         del packed
     b_ms, b_by = bound_ms(nbytes, 2 * S * K * N, dtype)
     return dict(kernel="matmul_int8", dtype=str(dtype).split(".")[-1], S=S, K=K, N=N, N_pad=N_pad,
-                k_split=matmul_q.k_split(K, N_pad), max_abs_err=err, tol=MM_TOL, kernel_ms=ms,
+                plan=dataclasses.asdict(matmul_q.plan(dtype, S, K, N_pad)), max_abs_err=err, tol=MM_TOL, kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, library="torch.mm, weight dequantized to x's dtype",
                 int8pack_ms=int8pack_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def matmul_line(c: dict) -> str:
+    p = c["plan"]
+    return (f"[matmul] {c['dtype']} K={c['K']} N={c['N']} S={c['S']}: kernel {c['kernel_ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.4f}, torch.mm {c['library_ms']:.4f}, bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}); plan {p['variant']} {p['rows']}x{p['cols']} split {p['split']}")
 
 
 def prefill_case(dtype, S: int, g) -> dict:
@@ -649,9 +660,10 @@ def main() -> int:
                 cases.append(verify_case(dtype, B, all_true, ctx_len, T, g, int8=True))
                 log("[kernel] " + json.dumps(cases[-1]))
         for K, N in MM_SHAPES:
-            for S in (1, BLOCK, PROMPT_CAP):
+            for S in (1, BLOCK - 1, BLOCK, PROMPT_CAP) + ((MM_LONG_S,) if dtype == torch.bfloat16 else ()):
                 cases.append(matmul_case(dtype, K, N, S, g, int8pack))
                 log("[kernel] " + json.dumps(cases[-1]))
+                log(matmul_line(cases[-1]))
     for N in (1, BLOCK):
         for T_thr in (2 * sampling.REPAIR_W, 2 * sampling.REFINE_W, filter_stats.THR_CAP):
             cases.append(filter_stats_case(N, T_thr, g))
@@ -703,6 +715,10 @@ def main() -> int:
     for key in ("ttft_spec_ms", "ttft_ar_ms", "ar_tpot_ms", "spec_tpot_ms", "spec_forced_tpot_ms"):
         log(f"[timing] {key}: bf16 path {timing[key]:.3f}, pallas path {timing_pallas[key]:.3f}, "
             f"int8 path {timing_int8[key]:.3f}")
+    log(f"[timing-int8] int8 path beside the bf16 path of this run: TTFT AR {timing_int8['ttft_ar_ms']:.3f} vs "
+        f"{timing['ttft_ar_ms']:.3f} ms, TTFT spec {timing_int8['ttft_spec_ms']:.3f} vs {timing['ttft_spec_ms']:.3f}, "
+        f"TPOT AR {timing_int8['ar_tpot_ms']:.3f} vs {timing['ar_tpot_ms']:.3f}, TPOT spec "
+        f"{timing_int8['spec_tpot_ms']:.3f} vs {timing['spec_tpot_ms']:.3f}")
     log(f"[timing] filtered spec TPOT {timing_filtered['spec_tpot_ms']:.3f} ms (tau "
         f"{timing_filtered['spec_tau']:.3f}, {timing_filtered['refinement_rounds_per_call']:.2f} refinement "
         f"rounds per sampling call) beside greedy spec TPOT {timing['spec_tpot_ms']:.3f} ms (tau "

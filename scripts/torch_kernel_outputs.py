@@ -1,18 +1,21 @@
 #!/usr/bin/env python
-"""Save the attention kernels' outputs at fixed inputs, or compare two saves
-bit for bit: shows that a change to a kernel source left a branch's numbers
-exactly as they were.  Needs an NVIDIA GPU.
+"""Save the attention and int8 matmul kernels' outputs at fixed inputs, or
+compare two saves bit for bit: shows that a change to a kernel source left a
+branch's numbers exactly as they were.  Needs an NVIDIA GPU.
 
     python scripts/torch_kernel_outputs.py save OUT.pt     # from a checkout's root
     python scripts/torch_kernel_outputs.py compare A.pt B.pt [PREFIX ...]
 
-``save`` imports the kernels of the checkout it runs from, so one copy of
-this script saves both sides.  ``compare`` reports every entry and fails
+``save`` imports the kernels of the checkout it runs from (its working
+directory), so one copy of this script saves both sides: run it from inside
+each checkout.  ``compare`` reports every entry and fails
 unless all are bitwise equal, leaving out the entries whose names start with
 a PREFIX given (the branches the change meant to move).
 
 Covers, at the main path's head shapes (nh 32, n_kv 8, d 128), bf16 and f32:
-verify_fused (float ctx and int8 ctx), prefill_flash and verify_attention.
+verify_fused (float ctx and int8 ctx), prefill_flash and verify_attention;
+and matmul_int8 (``matmul_<x dtype>_<S>_<K>x<N>``, f32 out) for f32 and
+bf16 x, S in {1, 16, 640}, at Qwen3-8B's wq, wk and gate shapes.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 def outputs() -> dict:
     from dflash_tpu_torch.cache.kv import quantize_rows
-    from dflash_tpu_torch.kernels import attention, prefill_flash, verify_fused
+    from dflash_tpu_torch.kernels import attention, matmul_q, prefill_flash, verify_fused
 
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {}
@@ -50,6 +53,14 @@ def outputs() -> dict:
         for B, T, start in ((16, 1024, 700), (1, 1024, 700)):
             q, k, v = randn(1, B, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
             res[f"verify_attention_{dtype}_{B}_{start}"] = attention.verify_attention(q, k, v, start, B).cpu()
+    g = torch.Generator(device="cuda").manual_seed(1)  # its own stream: the entries above keep their inputs
+    for K, N in ((4096, 4096), (4096, 1024), (4096, 12288)):
+        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand((1, N), generator=g, device="cuda") * 1e-3
+        x = torch.randn((640, K), generator=g, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for S in (1, 16, 640):
+                res[f"matmul_{dtype}_{S}_{K}x{N}"] = matmul_q.matmul_int8(x[:S].to(dtype), q, scale, N).cpu()
     return res
 
 

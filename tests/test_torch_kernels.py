@@ -265,6 +265,16 @@ def test_cuda_kernels_match_plain(dtype):
         torch.testing.assert_close(out.float(), prefill_flash.plain(q, k, v, scale).float(), **_tol(dtype))
 
 
+# (K, N_pad, n) on the card: Qwen3-8B's wk/wv, wq/wo, down and gate/up;
+# column tiles cut by N_pad (1040) and stages cut by K (272); ragged N_pad
+# (not a multiple of 16: the ragged variant); n < N_pad
+_MM_SHAPES = [(4096, 1024, 1024), (4096, 4096, 4096), (12288, 4096, 4096), (4096, 12288, 12288),
+              (256, 640, 600), (272, 1040, 1030), (64, 100, 97), (128, 520, 517)]
+# S: the GEMV, verify/draft widths and both sides of the 16-row and 32-row
+# limits, ragged and whole wgmma row tiles, the prompt and a long prompt
+_MM_S = (1, 3, 15, 16, 17, 32, 33, 40, 64, 130, 640, 2048)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_matmul_int8_matches_plain(dtype):
@@ -272,22 +282,22 @@ def test_cuda_matmul_int8_matches_plain(dtype):
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     dtype = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(1)
-    for K, N_pad, n in [(4096, 1024, 1024), (4096, 4096, 4096), (12288, 4096, 4096),
-                        (4096, 12288, 12288), (256, 640, 600), (64, 100, 97)]:
-        # S: the GEMV, 16-row tensor-core tiles, a ragged 64-row tile, 2 tiles
+    for K, N_pad, n in _MM_SHAPES:
         q = torch.randint(-127, 128, (K, N_pad), generator=g, device="cuda", dtype=torch.int8)
         scale = torch.rand((1, N_pad), generator=g, device="cuda") * 1e-3
-        x = torch.randn((130, K), generator=g, device="cuda").to(dtype)
-        for S in (1, 3, 16, 40, 130):
+        x = torch.randn((max(_MM_S), K), generator=g, device="cuda").to(dtype)
+        for S in _MM_S:
             for out_dtype in (torch.float32, torch.bfloat16):
+                before = matmul_q.matmul_int8.launches
                 out = matmul_q.matmul_int8(x[:S], q, scale, n, out_dtype=out_dtype)
+                assert matmul_q.matmul_int8.launches == before + 1
                 ref = matmul_q.plain(x[:S], q, scale, n, out_dtype=out_dtype)
                 assert out.shape == (S, n) and out.dtype == out_dtype
                 tol = dict(atol=1e-4, rtol=1e-5) if out_dtype == torch.float32 else _tol(torch.bfloat16)
-                torch.testing.assert_close(out.float(), ref.float(), **tol)
+                torch.testing.assert_close(out.float(), ref.float(), **tol,
+                                           msg=f"K {K} N_pad {N_pad} n {n} S {S} {out_dtype}")
         # f32 x: a row's sum does not depend on S or on its place in the tile
-        # (the exact spec == AR run); bf16 x: not within the tensor cores'
-        # 16-row tiles (S = 2 .. 32)
+        # (the exact spec == AR run); bf16 x: not for S = 2 .. 32 either
         if dtype == torch.float32:
             rows = [matmul_q.matmul_int8(x[i:i + 1], q, scale, n) for i in range(40)]
             for S in (3, 16, 40):
@@ -296,6 +306,42 @@ def test_cuda_matmul_int8_matches_plain(dtype):
             full = matmul_q.matmul_int8(x[:32], q, scale, n)
             for S in (2, 3, 16):
                 assert torch.equal(matmul_q.matmul_int8(x[:S], q, scale, n), full[:S])
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_int8_bf16_is_deterministic():
+    """bf16 x: two calls give the same bits in every variant (the stream
+    variant's K-split merge sums in a fixed order; no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for K, N_pad, n in _MM_SHAPES:
+        q = torch.randint(-127, 128, (K, N_pad), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand((1, N_pad), generator=g, device="cuda") * 1e-3
+        x = torch.randn((2048, K), generator=g, device="cuda").to(torch.bfloat16)
+        for S in (1, 16, 32, 640, 2048):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                a = matmul_q.matmul_int8(x[:S], q, scale, n, out_dtype=out_dtype)
+                assert torch.equal(a, matmul_q.matmul_int8(x[:S], q, scale, n, out_dtype=out_dtype)), (K, N_pad, S)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_int8_bf16_rows_do_not_depend_on_S():
+    """bf16 x, S = 1 .. 32 (the stream variant): each row equals, bit for bit,
+    the same row of an S = 32 call, so a bf16 AR step equals the same row of a
+    verify or a draft forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for K, N_pad, n in _MM_SHAPES[:4]:
+        q = torch.randint(-127, 128, (K, N_pad), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand((1, N_pad), generator=g, device="cuda") * 1e-3
+        x = torch.randn((32, K), generator=g, device="cuda").to(torch.bfloat16)
+        full = matmul_q.matmul_int8(x, q, scale, n)
+        for S in range(1, 33):
+            assert torch.equal(matmul_q.matmul_int8(x[:S], q, scale, n), full[:S]), (K, N_pad, S)
+        for r in range(32):
+            assert torch.equal(matmul_q.matmul_int8(x[r:r + 1], q, scale, n)[0], full[r]), (K, N_pad, r)
 
 
 @pytest.mark.cuda

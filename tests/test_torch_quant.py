@@ -145,6 +145,57 @@ def test_k_split_depends_on_the_weight_only():
         assert -(-N // matmul_q.COLS_PER_BLOCK) * ks >= 128
 
 
+# (K, N_pad) of every Qwen3-8B projection, N padded to 512 as
+# quantize_target_params pads it; the wgmma tile each takes at S = 640 and 2048
+_PROJECTIONS = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "gate/up": (4096, 12288),
+                "down": (12288, 4096), "lm_head": (4096, 152064)}
+_PROMPT_TILES = {"wq/wo": ((160, 128), (128, 128)), "wk/wv": ((64, 128), (128, 128)),
+                 "gate/up": ((160, 128), (128, 128)), "down": ((160, 128), (128, 128)),
+                 "lm_head": ((128, 128), (128, 128))}
+
+
+@pytest.mark.parametrize("proj", sorted(_PROJECTIONS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_plan_policy(proj, dtype):
+    """matmul_int8's dispatch at a Qwen3-8B projection: f32 x keeps the FMA
+    plan (1-, 4- or 16-row tiles, K split by k_split); bf16 x streams the
+    weight up to S = 32 (rows padded to 16 or 32, K split by k_split, shared
+    by every S, so rows do not depend on S) and runs wgmma beyond, with no K
+    split and the row tile that best fills the 132 SMs."""
+    K, N_pad = _PROJECTIONS[proj]
+    ks = matmul_q.k_split(K, N_pad)
+    for S in (1, 15, 16, 32, 33, 640, 2048):
+        p = matmul_q.plan(getattr(torch, dtype), S, K, N_pad)
+        if dtype == "float32":
+            assert p == matmul_q.Plan("fma", 1 if S == 1 else 4 if S <= 4 else 16, 128, ks)
+        elif S <= 32:
+            assert p == matmul_q.Plan("stream", 16 if S <= 16 else 32, 128, ks)
+        else:
+            assert p.variant == "wgmma" and p.split == 1 and p.cols == 128
+            # 64 rows for short x or a grid under half the SMs; else the
+            # fewest rows of work on the busiest SM, 128 rows on a tie
+            blocks = lambda r: -(-S // r) * -(-N_pad // 128)  # noqa: E731
+            cost = lambda r: -(-blocks(r) // matmul_q.SM_COUNT) * r  # noqa: E731
+            if S <= 64 or blocks(128) < matmul_q.SM_COUNT // 2:
+                assert p.rows == 64
+            else:
+                assert p.rows in (128, 160) and cost(p.rows) == min(cost(128), cost(160))
+                assert p.rows == 128 or cost(160) < cost(128)
+            if S in (640, 2048):
+                assert (p.rows, p.cols) == _PROMPT_TILES[proj][S == 2048]
+
+
+@pytest.mark.parametrize("K,N_pad", [(64, 100), (128, 520), (4096, 4100)])
+def test_matmul_plan_ragged_widths(K, N_pad):
+    """N_pad % 16 != 0 (rows TMA and 16-byte copies cannot address): bf16 x
+    takes the ragged variant at every S, without a K split; f32 x keeps its
+    FMA plan."""
+    for S in (1, 16, 32, 33, 640):
+        p = matmul_q.plan(torch.bfloat16, S, K, N_pad)
+        assert p == matmul_q.Plan("ragged", 16 if S <= 32 else 64, 128, 1)
+        assert matmul_q.plan(torch.float32, S, K, N_pad).variant == "fma"
+
+
 # ---------------------------------------------------------------------------
 # int8 KV cache
 # ---------------------------------------------------------------------------
