@@ -30,10 +30,13 @@ Phases, each fatal on failure (nothing is caught):
      installed PyTorch runs it on CUDA.
      Then filter_stats (x f32 [N, 151,936], N in {1, 16}, T in {16, 32, 64}
      thresholds from the rows' own values plus 0xFFFFFFFF and a pattern below
-     the row minimum; counts exact, the rest within 2e-6; no library call
-     computes these outputs); the keep sets of filtered_logits_topk_topp at
-     full vocabulary, with the kernel's stats and with the plain version's,
-     against a full-sort f64 keep rule; and verify_attention (bf16 and f32,
+     the row minimum; counts exact, the rest within 2e-6, a second call
+     bit-equal; no library call computes these outputs), each with its plan
+     (filter_stats.plan: chunk, blocks per row) and the device kernels one
+     call launches (torch.profiler: the kernel's own, and all told); the
+     keep sets of filtered_logits_topk_topp at full vocabulary, with the
+     kernel's stats and with the plain version's, against a full-sort f64
+     keep rule; and verify_attention (bf16 and f32,
      B in {16, 1}, start in {0, 1, 700, T - 16} and on both sides of the
      bf16 kernel's first split boundary, T = 1024, each with NaN K/V past
      the frontier; yardstick scaled_dot_product_attention over the valid
@@ -71,6 +74,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from dflash_tpu_torch.cache.kv import quantize_rows
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
@@ -321,6 +326,17 @@ def prefill_case(dtype, S: int, g) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def device_kernels(fn) -> list:
+    """Names of the device kernels that one call of ``fn`` launches (from the
+    second of two profiled calls: the first session may miss its kernels)."""
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def filter_stats_case(N: int, T: int, g) -> dict:
     """filter_stats at x f32 [N, V], T thresholds drawn from the rows' own
     values, the last two replaced by 0xFFFFFFFF (padding) and a pattern below
@@ -340,15 +356,30 @@ def filter_stats_case(N: int, T: int, g) -> dict:
     err = max((a - b).abs().max().item() for a, b in zip(out[2:], ref[2:]))
     for a, b in zip(out[2:], ref[2:]):
         torch.testing.assert_close(a, b, atol=FS_ATOL, rtol=0)
+    again = filter_stats.filter_stats(*sets[0])
+    assert all(torch.equal(a, b) for a, b in zip(again, out)), "filter_stats differs from call to call"
     ms = cuda_ms([lambda s=s: filter_stats.filter_stats(*s) for s in sets], 50)
     plain_ms = cuda_ms([lambda s=s: filter_stats.plain(*s) for s in sets], 5)
-    # ~3 operations per element and threshold (two compares, a masked add),
-    # ~5 per element besides (max, min, exp, sum, the bits), at the f32 rate
-    b_ms, b_by = bound_ms(nbytes, N * V * (3 * T + 5), torch.float32)
+    names = device_kernels(lambda: filter_stats.filter_stats(*sets[0]))
+    # what the function needs, not this kernel's loop: ~5 operations per
+    # element (max, min, exp, sum, the bits) and, for the thresholds, a
+    # binary search over them sorted (ceil(log2 T)) plus ~2 to bin the
+    # element; the per-row sort and suffix sums over T bins are negligible
+    b_ms, b_by = bound_ms(nbytes, N * V * (5 + (T - 1).bit_length() + 2), torch.float32)
     return dict(kernel="filter_stats", N=N, T=T, V=V, max_abs_err=err, tol=dict(atol=FS_ATOL),
                 kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
                 library="none: no one PyTorch call computes the five outputs",
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, plan=dataclasses.asdict(filter_stats.plan(N, V)),
+                device_launches_per_call=sum("dflash_fs" in n for n in names),
+                device_kernels_per_call=len(names))
+
+
+def filter_stats_line(c: dict) -> str:
+    p = c["plan"]
+    return (f"[filter_stats] N={c['N']} T={c['T']}: kernel {c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f}, "
+            f"bound {c['bound_ms']:.5f} ({c['bound_by']}); plan chunk {p['chunk']} x {p['blocks_per_row']} "
+            f"blocks a row; device launches a call {c['device_launches_per_call']} "
+            f"(device kernels a call, all told: {c['device_kernels_per_call']})")
 
 
 def keep_set_case(top_k: int, top_p: float, g) -> dict:
@@ -668,6 +699,7 @@ def main() -> int:
         for T_thr in (2 * sampling.REPAIR_W, 2 * sampling.REFINE_W, filter_stats.THR_CAP):
             cases.append(filter_stats_case(N, T_thr, g))
             log("[kernel] " + json.dumps(cases[-1]))
+            log(filter_stats_line(cases[-1]))
     for top_k, top_p in KEEP_CASES:
         log("[keep-set] " + json.dumps(keep_set_case(top_k, top_p, g)))
     for dtype in (torch.bfloat16, torch.float32):

@@ -111,6 +111,21 @@ def checked_ptrs(op: str, *tensors) -> list[int]:
     return [t.data_ptr() for t in tensors]
 
 
+_counters: dict = {}
+
+
+def merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the kernels that merge their
+    blocks' partials in the same launch (the last block to count itself done
+    merges); each such launch leaves its counters zero again.  One buffer per
+    device, grown on demand and shared by those kernels: calls on one device
+    run on one stream at a time, as the engine's do."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
 def function(lib: str, name: str, argtypes: list) -> object:
     """The C function ``name`` of kernel library ``lib`` (built if needed),
     with ``argtypes`` declared and an int (cudaError_t) result."""

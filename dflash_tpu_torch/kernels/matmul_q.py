@@ -133,20 +133,6 @@ def plan(dtype: torch.dtype, S: int, K: int, N_pad: int) -> Plan:
     return Plan(WGMMA, *wgmma_tile(S, N_pad), 1)
 
 
-_counters: dict = {}
-
-
-def _merge_counters(device: torch.device, n_tiles: int) -> torch.Tensor:
-    """Zeroed int32 counters, one per column tile, for the stream variant's
-    in-launch merge; each launch leaves them zeroed again.  Allocated once per
-    device (calls on one device run on one stream at a time, as the engine's
-    do)."""
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < n_tiles:
-        buf = _counters[device] = torch.zeros(max(n_tiles, 1024), dtype=torch.int32, device=device)
-    return buf
-
-
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int, out_dtype) -> None:
     S, K = x.shape
     if x.dtype not in _build.DTYPE_CODES or out_dtype not in _OUT_CODES:
@@ -181,7 +167,7 @@ def matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
     p = plan(x.dtype, S, K, N_pad)
     out = torch.empty((S, n), dtype=out_dtype, device=x.device)
     partial = torch.empty((p.split, S, N_pad), dtype=torch.float32, device=x.device) if p.split > 1 else None
-    counters = (_merge_counters(x.device, -(-N_pad // p.cols))
+    counters = (_build.merge_counters(x.device, -(-N_pad // p.cols))
                 if p.variant == STREAM and p.split > 1 else None)
     fn = _build.function("matmul_q", "dflash_matmul_int8", _ARGTYPES)
     with torch.cuda.device(x.device):

@@ -14,8 +14,11 @@ a PREFIX given (the branches the change meant to move).
 
 Covers, at the main path's head shapes (nh 32, n_kv 8, d 128), bf16 and f32:
 verify_fused (float ctx and int8 ctx), prefill_flash and verify_attention;
-and matmul_int8 (``matmul_<x dtype>_<S>_<K>x<N>``, f32 out) for f32 and
-bf16 x, S in {1, 16, 640}, at Qwen3-8B's wq, wk and gate shapes.
+matmul_int8 (``matmul_<x dtype>_<S>_<K>x<N>``, f32 out) for f32 and
+bf16 x, S in {1, 16, 640}, at Qwen3-8B's wq, wk and gate shapes; and
+filter_stats (``filter_stats_<N>_<T>_<output>``) on f32 logits [N, 151,936],
+N in {1, 16}, T in {16, 32}.  Each group draws its inputs from a generator of
+its own, so adding a group leaves the earlier entries' inputs as they were.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 def outputs() -> dict:
     from dflash_tpu_torch.cache.kv import quantize_rows
-    from dflash_tpu_torch.kernels import attention, matmul_q, prefill_flash, verify_fused
+    from dflash_tpu_torch.kernels import attention, filter_stats, matmul_q, prefill_flash, verify_fused
 
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {}
@@ -61,6 +64,15 @@ def outputs() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for S in (1, 16, 640):
                 res[f"matmul_{dtype}_{S}_{K}x{N}"] = matmul_q.matmul_int8(x[:S].to(dtype), q, scale, N).cpu()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for N in (1, 16):
+        for T in (16, 32):
+            x = torch.randn((N, 151936), generator=g, device="cuda") * 3.0
+            thr = torch.gather(filter_stats.ordered_bits(x), 1,
+                               torch.randint(0, 151936, (N, T), generator=g, device="cuda"))
+            names = ("count_ge", "count_gt", "mass_gt", "lse", "row_min")
+            for name, out in zip(names, filter_stats.filter_stats(x, thr)):
+                res[f"filter_stats_{N}_{T}_{name}"] = out.cpu()
     return res
 
 

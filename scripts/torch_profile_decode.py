@@ -5,6 +5,7 @@
     python3 scripts/torch_profile_decode.py --int8       # int8 weights + kv_quant
     python3 scripts/torch_profile_decode.py --pallas     # attn_impl="pallas"
     python3 scripts/torch_profile_decode.py --filtered   # spec at T 0.8, top_k 50, top_p 0.95
+    python3 scripts/torch_profile_decode.py --filtered --root OTHER   # another checkout
 
 Builds the bf16 Qwen3-8B engine of chip_smoke.py (full width and depth,
 random weights from a seed, 1-layer draft, a 600-token prompt padded to 640;
@@ -16,8 +17,13 @@ prints one JSON line each with: the decode's wall ms per token
 without the profiler (two runs); and, for one more decode under
 torch.profiler (the prefill runs before the profiler starts), the device busy
 share (union of kernel intervals over the profiled wall time), kernel
-launches per token, and the kernels that take the most device time.  Needs a
+launches per token, the device ms and launches per token of the
+filter_stats kernel, and the kernels that take the most device time.  Needs a
 card; imports no JAX.
+
+It profiles the ``dflash_tpu_torch`` of its own checkout, or of the checkout
+named by ``--root`` (so that one copy of it profiles two checkouts alike), and
+names the package's directory in each line.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+_ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]) if "--root" in sys.argv
+         else Path(__file__).resolve().parents[1]).resolve()
+sys.path.insert(0, str(_ROOT))
 
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config  # noqa: E402
 from dflash_tpu_torch.models import dflash_draft, qwen3  # noqa: E402
@@ -75,12 +83,15 @@ def measure(label: str, prefill, decode, run) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "path": label,
+        "package": str(Path(eng.__file__).parents[1]),
         "decode_wall_ms_per_token": tpots,
         "profiled_tokens": n_tok,
         "profiled_wall_ms_per_token": prof_wall_us / 1e3 / n_tok,
         "device_busy_ms_per_token": busy / 1e3 / n_tok,
         "device_busy_share": busy / prof_wall_us,
         "kernel_launches_per_token": len(kernels) / n_tok,
+        "filter_stats_ms_per_token": sum(us for name, us in by_name.items() if "dflash_fs" in name) / 1e3 / n_tok,
+        "filter_stats_launches_per_token": sum("dflash_fs" in e.name for e in kernels) / n_tok,
         "top_kernels_ms_per_token": {name[:80]: us / 1e3 / n_tok for name, us in top},
     }
 

@@ -14,7 +14,7 @@ tests/test_torch_quant.py; ``filter_stats`` and ``verify_attention`` (the
 kernel module ``attention``) are held against JAX in
 tests/test_torch_sampling.py and tests/test_torch_forward.py.  On the card:
 ``filter_stats`` counts exact, masses and lse within atol 2e-6 (f32 sums of
-up to 151,936 terms taken in another order).
+up to 151,936 terms taken in another order), and bit-equal from call to call.
 
 JAX is imported inside the tests that use it: the card's machine has no JAX,
 and runs this file's card test alone with
@@ -170,6 +170,34 @@ def test_verify_fused_split_policy(R, ctx_len):
         assert (n_ctx_splits + 1) * units <= attention.SM_COUNT + units
     ws = verify_fused.workspace_floats(R, nh, n_kv, ctx_len, d)
     assert ws == (0 if ctx_len == 0 else (n_ctx_splits + 1) * nh * R * (d + 2))
+
+
+@pytest.mark.parametrize("N", [1, 2, 16, 17, 256])
+@pytest.mark.parametrize("V", [1000, 4096, 151936, 151939])
+def test_filter_stats_plan(N, V):
+    """filter_stats' chunk: a compiled instance (256 threads x 4..32 logits),
+    within the packed counts' 16 bits; the blocks of a row cover V with no
+    block empty; no other instance puts less work on the busiest SM; a
+    Qwen3 row alone still spreads over every SM; and the workspace holds
+    (max, sum, min) and T (counts, mass) words per block."""
+    p = filter_stats.plan(N, V)
+    assert p.threads == 256 and p.chunk in (1024, 2048, 4096, 8192)
+    assert p.chunk <= filter_stats.PACK_CAP
+    assert p.blocks_per_row * p.chunk >= V > (p.blocks_per_row - 1) * p.chunk
+    assert p.blocks_per_row <= filter_stats.MAX_BLOCKS_PER_ROW
+
+    def busiest(chunk):  # blocks on the busiest of 132 SMs, times (logits a thread + 4)
+        return -(-N * -(-V // chunk) // 132) * (chunk // 256 + 4)
+
+    if N * p.blocks_per_row >= 132:
+        assert all(busiest(p.chunk) <= busiest(c) for c in (1024, 2048, 4096, 8192)
+                   if N * -(-V // c) >= 132)
+    if V >= 151936:
+        assert N * p.blocks_per_row >= 132
+    if (N, V) == (16, 151936):
+        assert (p.chunk, p.blocks_per_row) == (4096, 38)
+    for T in (1, 16, 32, 64):
+        assert filter_stats.workspace_words(p, N, T) == N * p.blocks_per_row * 3 + N * T * p.blocks_per_row * 2
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -352,26 +380,58 @@ def test_cuda_verify_int8_ctx_matches_plain(dtype):
     _check_fused_cases(getattr(torch, dtype), True, 2)
 
 
+def _fs_case(g, N, V, T):
+    """x [N, V] with ties (a run of 1.5), T unsorted thresholds from the
+    rows' own values, led by specials: 0xFFFFFFFF (padding), row_min - 1
+    (below everything), 0, the bits of 1.5 (ties) and a duplicate."""
+    x = torch.randn((N, V), generator=g, device="cuda") * 3.0
+    x[:, :40] = 1.5
+    bits = filter_stats.ordered_bits(x)
+    thr = torch.gather(bits, 1, torch.randint(0, V, (N, T), generator=g, device="cuda"))
+    specials = [torch.full_like(thr[:, 0], 0xFFFFFFFF), bits.amin(dim=1) - 1, torch.zeros_like(thr[:, 0]),
+                bits[:, 0], thr[:, -1]]
+    for i, col in enumerate(specials[:T]):
+        thr[:, i] = col
+    return x, thr
+
+
 @pytest.mark.cuda
 def test_cuda_filter_stats_matches_plain():
+    """Counts exact, masses / lse / min within 2e-6, one launch per call;
+    N 1..17, T 1..64 (groups of 4 and their tails), V aligned and ragged."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(3)
-    for N, V, T in [(1, 151936, 16), (16, 151936, 32), (3, 1000, 64), (2, 1025, 5)]:
-        x = torch.randn((N, V), generator=g, device="cuda") * 3.0
-        x[:, :40] = 1.5  # ties
-        bits = filter_stats.ordered_bits(x)
-        cols = torch.randint(0, V, (N, T), generator=g, device="cuda")
-        thr = torch.gather(bits, 1, cols)
-        thr[:, 0] = 0xFFFFFFFF
-        thr[:, 1] = bits.amin(dim=1) - 1
+    cases = [(N, V, T) for N in (1, 2, 16, 17) for V in (4096, 151936, 151939) for T in (1, 16, 31, 32, 33, 64)]
+    for N, V, T in cases + [(3, 1000, 64), (2, 1025, 5)]:
+        x, thr = _fs_case(g, N, V, T)
         before = filter_stats.filter_stats.launches
         got = filter_stats.filter_stats(x, thr)
         assert filter_stats.filter_stats.launches == before + 1
         ref = filter_stats.plain(x, thr)
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (N, V, T)
         for a, b in zip(got[2:], ref[2:]):
-            torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
+            torch.testing.assert_close(a, b, atol=2e-6, rtol=0, msg=f"N {N} V {V} T {T}")
+
+
+@pytest.mark.cuda
+def test_cuda_filter_stats_is_deterministic_and_resets_its_counters():
+    """Two calls give the same bits; calls with N = 16, 1, 17, 16 back to
+    back (other plans, other blocks per row) each equal their own first
+    result, so every launch leaves the row counters at zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for V in (151936, 151939):
+        inputs = {N: _fs_case(g, N, V, 32) for N in (16, 1, 17)}
+        first = {}
+        for N, (x, thr) in inputs.items():
+            first[N] = filter_stats.filter_stats(x, thr)
+            torch.cuda.synchronize()
+        again = [(N, filter_stats.filter_stats(*inputs[N])) for N in (16, 1, 17, 16)]
+        torch.cuda.synchronize()
+        for N, out in again:
+            assert all(torch.equal(a, b) for a, b in zip(out, first[N])), (V, N)
 
 
 def _split_starts(B, T):
