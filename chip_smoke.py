@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Four paths are driven: the bf16/f32 path (float weights and KV cache), the
+Five paths are driven: the bf16/f32 path (float weights and KV cache), the
 int8 serving path (int8 weights from quantize_target_params /
 quantize_draft_params, and kv_quant=True), the attn_impl="pallas" path
 (verify and AR step through qwen3.forward and the frontier-bounded
-verify_attention kernel) and filtered sampling (generate(top_k, top_p),
-whose exact keep set comes from the filter_stats kernel).
+verify_attention kernel), filtered sampling (generate(top_k, top_p),
+whose exact keep set comes from the filter_stats kernel) and the batched
+engine (spec/batched.py: R request lanes in one forward per cycle, the
+attention kernels' lane entries with per-lane frontiers on the card), on the
+float and the int8 path.
 
 Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
@@ -41,6 +44,14 @@ Phases, each fatal on failure (nothing is caught):
      bf16 kernel's first split boundary, T = 1024, each with NaN K/V past
      the frontier; yardstick scaled_dot_product_attention over the valid
      rows with the offset causal mask).
+     Lane entries ([kernel-lanes] lines): verify_fused with L in {1, 4, 8}
+     lanes, each value of LANE_STARTS and T - 16 as some lane's frontier (an
+     int32 tensor on the card), bf16 / f32 / int8 ctx, B 16 and 1, NaN past
+     every lane's frontier bit-equal, f32 lane rows bit-equal to L = 1 calls;
+     prefill_flash with L in {1, 4} lanes of S = 640, bf16 and f32, lane
+     rows bit-equal to L = 1 calls.  Timed: verify_fused at 8 lanes at 700
+     (bf16 and int8 ctx; SDPA batched over the lanes) and prefill_flash at 4
+     lanes ([kernel] lines with "L").
   4. exact parity, f32, Qwen3-8B at full width and depth, random weights from
      a seed: SpecEngine.generate == SpecEngine.ar_generate token for token on
      two 600-token prompts (padded to 640), and the kernel launch counts of
@@ -49,13 +60,21 @@ Phases, each fatal on failure (nothing is caught):
      attn_impl="pallas" engine on phase 4's weights; 4d: two filtered
      requests whose keep set is the argmax alone (temperature 1.5, top_k 1;
      temperature 2, top_k 2, top_p 1e-6) on phase 4's engine, which must
-     give the greedy tokens with exactly 1 + n_cycles filter_stats launches.
+     give the greedy tokens with exactly 1 + n_cycles filter_stats launches;
+     4e: the batched engine on phase 4's weights, R = 4 lanes (prompts A, B,
+     A and a 530-token C): lanes 0 and 2 identical, lanes 0 and 1 phase 4's
+     tokens, lane 3 generate's on C, and one request's launch counts per
+     cycle (verify_fused 37) and per prefill (prefill_flash 36) whatever R;
+     4f: the same on the int8 path against phase 4b's tokens.
   5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
      draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
      agreement length (printed, not asserted: bf16 greedy can flip on ties).
      5: the bf16 path; 5c: the attn_impl="pallas" path on the same weights,
      and filtered spec decoding (temperature 0.8, top_k 50, top_p 0.95) on
-     the default path; 5b: the int8 path.
+     the default path; 5e: the batched engine at R in {1, 4, 8, 16} lanes,
+     128 new tokens each, at the random draft's tau and the forced 7.46: tok/s
+     summed over the lanes, the batched prefill's TTFT, launches per cycle;
+     5b: the int8 path.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the device JSON.  Exits non-zero, printing no result, without
 CUDA.
@@ -84,6 +103,7 @@ from dflash_tpu_torch.models import dflash_draft, qwen3
 from dflash_tpu_torch.ops import sampling
 from dflash_tpu_torch.ops.linear import QTensor, dequantize
 from dflash_tpu_torch.quant import quantize_draft_params, quantize_target_params
+from dflash_tpu_torch.spec import batched
 from dflash_tpu_torch.spec.engine import SpecEngine
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate; bf16 tensor-core and
@@ -118,6 +138,10 @@ PARITY_NEW, TIMING_NEW = 64, 128
 REF_TAU = 7.46
 PALLAS_T = 1024  # the timing engine's total_len (785) rounded up to 512 on the "pallas" path
 FILTERED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# lane frontiers of phase 3's lane cases (with T - BLOCK), and the lanes of
+# phase 5e
+LANE_STARTS = (0, 1, 63, 64, 65, 700)
+LANES_TIMED = (1, 4, 8, 16)
 
 
 def log(msg: str) -> None:
@@ -238,6 +262,134 @@ def verify_case(dtype, B: int, all_true: bool, ctx_len: int, T: int, g, int8: bo
                 max_abs_err=err, tol=TOL[dtype], nan_past_frontier_bit_equal=nan_equal,
                 kernel_ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def lane_starts_sets(T: int, L: int) -> list:
+    """Frontier sets for an L-lane call: each value of LANE_STARTS + [T - B]
+    (none, one row, both sides of the bf16 kernel's first split boundary, the
+    main path's 700, a full cache) in some lane: one call per value at L = 1,
+    a rotation of the list across lanes otherwise."""
+    pool = list(LANE_STARTS) + [T - BLOCK]
+    if L == 1:
+        return [[s] for s in pool]
+    n = -(-len(pool) // L)
+    return [[pool[(i * L + l) % len(pool)] for l in range(L)] for i in range(n)]
+
+
+def verify_lanes_case(dtype, L: int, B: int, starts: list, T: int, g, int8: bool = False,
+                      timed: bool = False) -> dict:
+    """verify_fused's lane entry: L lanes, each with its own ctx [T, n_kv, d]
+    and frontier (an int32 tensor on the card), against the lane plain
+    version; f32: each lane's rows bit-equal to an L = 1 call on its inputs;
+    NaN past every lane's frontier (int8: in its scales) must leave the
+    output bit-equal.  ``timed``: kernel, plain and SDPA times (batched over
+    the lanes: valid only with equal frontiers, which the timed cases use)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    ctx_es = 1 if int8 else es
+    scale_bytes = 2 * NKV * 4 if int8 else 0  # per ctx row
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+
+    def make():
+        k, v = randn(L, T, NKV, D), randn(L, T, NKV, D)
+        ctx = (k, None, v, None)
+        if int8:
+            (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+            ctx = (kq, ks, vq, vs)
+        return (randn(L, 1, B, NH, D), *ctx, randn(L, 1, B, NKV, D), randn(L, 1, B, NKV, D))
+
+    per_call = L * (2 * T * NKV * D * ctx_es + T * scale_bytes + (2 * B * NH * D + 2 * B * NKV * D) * es)
+    sets = [make() for _ in range(copies_for(per_call) if timed else 1)]
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+    scale = D ** -0.5
+
+    def kernel(s):
+        return verify_fused.fused_ctx_block_attention_lanes(*s[:5], s[5], s[6], st, max(starts), mask, scale)
+
+    def plain(s):
+        return verify_fused.plain_lanes(s[0], s[1], s[3], s[5], s[6], st, mask, scale, s[2], s[4])
+
+    s0 = sets[0]
+    out, ref = kernel(s0), plain(s0)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    lanes_equal_single = None
+    if dtype == torch.float32:
+        for l in range(L):
+            sc = (None, None) if s0[2] is None else (s0[2][l:l + 1], s0[4][l:l + 1])
+            one = verify_fused.fused_ctx_block_attention(s0[0][l], s0[1][l:l + 1], sc[0], s0[3][l:l + 1], sc[1],
+                                                         s0[5][l], s0[6][l], starts[l], mask, scale)
+            assert torch.equal(out[l], one), f"f32 lane {l} differs from an L = 1 call"
+        lanes_equal_single = True
+    dirty = [t.clone() if t is not None else None for t in s0]
+    for l, s in enumerate(starts):
+        for i in ((2, 4) if int8 else (1, 3)):  # the scales, or the K/V rows
+            dirty[i][l, s:] = float("nan")
+    dirty_out = kernel(dirty)
+    nan_equal = bool(torch.isfinite(dirty_out).all()) and torch.equal(dirty_out, out)
+    assert nan_equal, f"verify_fused (lanes {starts}) read a ctx past its lane's frontier"
+    del dirty, dirty_out
+    res = dict(kernel="verify_fused_lanes_int8_ctx" if int8 else "verify_fused_lanes",
+               dtype=str(dtype).split(".")[-1], L=L, B=B, T=T, starts=starts, max_abs_err=err,
+               tol=TOL[dtype], f32_lanes_bit_equal_to_single=lanes_equal_single,
+               nan_past_frontiers_bit_equal=nan_equal)
+    if not timed:
+        return res
+    assert len(set(starts)) == 1, "the SDPA yardstick batches equal frontiers"
+    c = starts[0]
+
+    def sdpa_inputs(q, ck, cks, cv, cvs, bk, bv):
+        if int8:  # dequantized beforehand: the yardstick reads q's dtype
+            ck = (ck.float() * cks[..., None]).to(dtype)
+            cv = (cv.float() * cvs[..., None]).to(dtype)
+        k = torch.cat([ck[:, :c], bk[:, 0]], dim=1).transpose(1, 2)  # [L, n_kv, c + B, d]
+        v = torch.cat([cv[:, :c], bv[:, 0]], dim=1).transpose(1, 2)
+        m = torch.cat([torch.ones(B, c, dtype=torch.bool, device="cuda"), mask], dim=1)
+        return q[:, 0].transpose(1, 2), k, v, m
+
+    lib = [sdpa_inputs(*s) for s in sets]
+    ms = cuda_ms([lambda s=s: kernel(s) for s in sets], 50)
+    plain_ms = cuda_ms([lambda s=s: plain(s) for s in sets], 5)
+    library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
+        a[0], a[1], a[2], attn_mask=a[3], scale=scale, enable_gqa=True) for a in lib], 50)
+    nbytes = sum((2 * B * NH * D + 2 * B * NKV * D) * es + 2 * s * NKV * D * ctx_es + s * scale_bytes
+                 for s in starts) + B * B + 4 * L
+    flops = sum(4 * NH * D * (B * s + int(mask.sum())) for s in starts)
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    return dict(res, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def prefill_lanes_case(dtype, L: int, S: int, g, timed: bool = False) -> dict:
+    """prefill_flash with L lanes of S rows: against the plain version, and
+    each lane's rows bit-equal to an L = 1 call on them (either dtype);
+    ``timed``: kernel, plain and SDPA (batched, causal) times."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = L * (2 * S * NH * D + 2 * S * NKV * D) * es
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    sets = [(randn(L, S, NH, D), randn(L, S, NKV, D), randn(L, S, NKV, D))
+            for _ in range(copies_for(nbytes) if timed else 1)]
+    scale = D ** -0.5
+    q, k, v = sets[0]
+    out = prefill_flash.flash_prefill_attention(q, k, v, scale)
+    ref = prefill_flash.plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    for l in range(L):
+        one = prefill_flash.flash_prefill_attention(q[l:l + 1], k[l:l + 1], v[l:l + 1], scale)
+        assert torch.equal(out[l], one[0]), f"prefill lane {l} differs from an L = 1 call"
+    res = dict(kernel="prefill_flash_lanes", dtype=str(dtype).split(".")[-1], L=L, S=S, max_abs_err=err,
+               tol=TOL[dtype], lanes_bit_equal_to_single=True)
+    if not timed:
+        return res
+    lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
+    ms = cuda_ms([lambda s=s: prefill_flash.flash_prefill_attention(*s, scale) for s in sets], 20)
+    plain_ms = cuda_ms([lambda s=s: prefill_flash.plain(*s, scale) for s in sets], 3)
+    library_ms = cuda_ms([lambda a=a: F.scaled_dot_product_attention(
+        *a, is_causal=True, scale=scale, enable_gqa=True) for a in lib], 20)
+    b_ms, b_by = bound_ms(nbytes, L * 4 * NH * D * (S * (S + 1) // 2), dtype)
+    return dict(res, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def int8pack_runs() -> bool:
@@ -639,6 +791,122 @@ def filtered_timing_phase(engine: SpecEngine) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phases 4e, 4f and 5e: the batched engine (spec/batched.py)
+# ---------------------------------------------------------------------------
+
+def lane_prompts(R: int) -> tuple:
+    """R prompts of PROMPT_LEN tokens (seeds 0 .. R-1; lanes 0 and 1 are
+    phase 4's two prompts), padded to the 640 bucket: ([R, 640], lens)."""
+    ids = np.zeros((R, PROMPT_CAP), np.int64)
+    for r in range(R):
+        ids[r, :PROMPT_LEN] = np.random.default_rng(r).integers(1, QWEN3_8B.vocab_size - 2, size=PROMPT_LEN)
+    return ids, np.full(R, PROMPT_LEN, np.int64)
+
+
+def lanes_expected(int8: bool, cycles: int, Ld: int) -> dict:
+    """Launch counts of one batched prefill and ``cycles`` batched cycles:
+    the counts of one request's, whatever the lanes."""
+    L = QWEN3_8B.num_hidden_layers
+    target_fwd, draft_append, draft_fwd = 7 * L + 1, 1 + 2 * Ld, 7 * Ld + 1
+    expected = dict.fromkeys(counts(), 0)
+    expected["prefill_flash"] = L
+    expected["verify_fused_int8_ctx" if int8 else "verify_fused"] += cycles * L
+    expected["verify_fused"] += cycles * Ld
+    if int8:
+        expected["matmul_int8"] = target_fwd + draft_append + cycles * (draft_append + draft_fwd + target_fwd)
+    return expected
+
+
+def batched_parity_phase(engine: SpecEngine, single: list, tag: str) -> dict:
+    """Phases 4e / 4f: f32, R = 4 lanes with prompts A, B, A and C (C: 530
+    tokens, so the frontiers differ), batched_prefill + batched_decode on the
+    engine's weights: lanes 0 and 2 identical, lanes 0 and 1 equal to the
+    single-request tokens ``single`` for A and B (phase 4 / 4b), lane 3 equal
+    to the engine's generate on C; launch counts exact (one request's per
+    cycle, whatever R)."""
+    int8 = engine.kv_quant
+    log(f"{tag} f32 batched engine, R = 4 lanes (prompts A, B, A, C), {path_name(int8)}")
+    ids, lens = lane_prompts(3)
+    ids = np.concatenate([ids[:2], ids[:1], np.zeros((1, PROMPT_CAP), np.int64)])
+    c_len = 530
+    ids[3, :c_len] = np.random.default_rng(2).integers(1, QWEN3_8B.vocab_size - 2, size=c_len)
+    lens = np.asarray([PROMPT_LEN, PROMPT_LEN, PROMPT_LEN, c_len])
+    kw = dict(tcfg=QWEN3_8B, dcfg=engine.dcfg)
+    reset_counts()
+    st = batched.batched_prefill(engine.t_params, engine.d_params, ids, lens, 0.0, total_len=engine.total_len,
+                                 max_cycles=PARITY_NEW, kv_quant=int8, **kw)
+    st = batched.batched_decode(engine.t_params, engine.d_params, st, lens + PARITY_NEW, 0.0, block_size=BLOCK,
+                                stop_token_ids=(), max_cycles=PARITY_NEW, **kw)
+    got = counts()
+    cycles = int(st.host_cycle_idx.max())  # the loop's cycles: the longest lane ran in every one
+    expected = lanes_expected(int8, cycles, engine.dcfg.model.num_hidden_layers)
+    log(f"{tag} {cycles} cycles, per-lane cycles {st.host_cycle_idx.tolist()}, frontiers "
+        f"{st.host_start.tolist()}; launches {json.dumps(got)} expected {json.dumps(expected)}")
+    assert got == expected, (got, expected)
+    path_kernels = ["prefill_flash", "verify_fused"] + (["verify_fused_int8_ctx", "matmul_int8"] if int8 else [])
+    assert all(got[k] > 0 for k in path_kernels), got
+    outs = batched.lane_outputs(st, lens, PARITY_NEW, engine.dcfg.mask_token_id)
+    alone = engine.generate(ids[3:4, :c_len])
+    checks = {"lanes 0 == 2": np.array_equal(outs[0], outs[2]),
+              "lane 0 == single A": np.array_equal(outs[0], single[0]),
+              "lane 1 == single B": np.array_equal(outs[1], single[1]),
+              "lane 3 == single C": np.array_equal(outs[3], alone.output_ids)}
+    log(f"{tag} {json.dumps(checks)}; tokens per lane {[int(o.shape[1] - l) for o, l in zip(outs, lens)]}")
+    assert all(checks.values()), checks
+    return got
+
+
+def batched_timing_phase(params: tuple) -> list:
+    """Phase 5e: the bf16 batched decode at R in LANES_TIMED, TIMING_NEW new
+    tokens per lane, at the random draft's own acceptance and at the forced
+    tau 7.46: tok/s summed over the lanes, the batched prefill's TTFT,
+    and the decode's kernel launches per cycle (one request's, whatever
+    R)."""
+    dcfg, t_params, d_params = params
+    forced = make_forced_acc(TIMING_NEW, BLOCK, REF_TAU)
+    T = PROMPT_CAP + TIMING_NEW + BLOCK + 1
+    kw = dict(tcfg=QWEN3_8B, dcfg=dcfg)
+    rows = []
+    for R in LANES_TIMED:
+        ids, lens = lane_prompts(R)
+
+        def run(new: int, fa) -> tuple:
+            """(state, TTFT s, decode wall s); the counts cover the decode alone."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = batched.batched_prefill(t_params, d_params, ids, lens, 0.0, total_len=T, max_cycles=TIMING_NEW,
+                                         **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_counts()
+            st = batched.batched_decode(t_params, d_params, st, lens + new, 0.0, block_size=BLOCK,
+                                        stop_token_ids=(), max_cycles=TIMING_NEW, forced_acc=fa, **kw)
+            torch.cuda.synchronize()
+            return st, t1 - t0, time.perf_counter() - t1
+
+        run(8, None)  # warm-up: the allocator and cuBLAS at this R
+        for mode, fa in (("own", None), ("forced", np.broadcast_to(forced, (R, TIMING_NEW)))):
+            st, ttft, wall = run(TIMING_NEW, fa)
+            cycles = int(st.host_cycle_idx.max())
+            tokens = int((st.host_start - lens).sum())
+            per_cycle = {k: v / cycles for k, v in counts().items() if v}
+            n_attn = QWEN3_8B.num_hidden_layers + dcfg.model.num_hidden_layers
+            assert counts()["verify_fused"] == n_attn * cycles, (counts(), cycles)  # one request's, whatever R
+            row = dict(path=path_name(False) + ", batched", lanes=R, tau_mode=mode,
+                       tau=float(st.acc_trace.float()[st.acc_trace > 0].mean()), new_tokens=TIMING_NEW,
+                       cycles=cycles, tokens=tokens, tok_s_summed=tokens / wall, decode_wall_s=wall,
+                       ms_per_cycle=wall * 1e3 / cycles, ttft_ms=ttft * 1e3, launches_per_cycle=per_cycle)
+            rows.append(row)
+            log("[timing-lanes] " + json.dumps(row))
+            log(f"[timing-lanes] R={R} tau {mode} ({row['tau']:.2f}): {row['tok_s_summed']:.1f} tok/s summed over "
+                f"lanes, {row['ms_per_cycle']:.2f} ms per cycle, TTFT {row['ttft_ms']:.1f} ms, verify_fused "
+                f"launches per cycle {per_cycle.get('verify_fused', 0):.1f}")
+        del ids
+        release()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -709,9 +977,27 @@ def main() -> int:
                 cases.append(verify_attention_case(dtype, B, start, g))
                 log("[kernel] " + json.dumps(cases[-1]))
 
+    # the lane entries, on inputs of their own (the cases above keep theirs):
+    # every frontier of lane_starts_sets in some lane, bf16 / f32 / int8 ctx,
+    # B 16 and 1; timed: 8 lanes at 700, B 16, and prefill at 4 lanes
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for int8 in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (BLOCK, 1):
+                for L in (1, 4, 8):
+                    for starts in lane_starts_sets(T, L):
+                        log("[kernel-lanes] " + json.dumps(verify_lanes_case(dtype, L, B, starts, T, g, int8)))
+            if dtype == torch.bfloat16:
+                cases.append(verify_lanes_case(dtype, 8, BLOCK, [700] * 8, T, g, int8, timed=True))
+                log("[kernel] " + json.dumps(cases[-1]))
+    for dtype in (torch.bfloat16, torch.float32):
+        for L in (1, 4):
+            cases.append(prefill_lanes_case(dtype, L, PROMPT_CAP, g, timed=L == 4))
+            log("[kernel] " + json.dumps(cases[-1]))
+
     # phase 4: exact parity through the kernels, f32, on one set of weights:
-    # 4 the default engine, 4c the "pallas" engine, 4d filtered requests;
-    # 4b: the int8 path
+    # 4 the default engine, 4c the "pallas" engine, 4d filtered requests, 4e
+    # the batched engine; 4b: the int8 path, 4f its batched engine
     t0 = time.perf_counter()
     params = build_params(torch.float32)
     torch.cuda.synchronize()
@@ -723,14 +1009,17 @@ def main() -> int:
     log("[parity-pallas] tokens agreeing with phase 4's, per prompt: "
         f"{[agreement(a, b) for a, b in zip(pallas_out, greedy)]} of {PARITY_NEW}")
     launches_filtered = filtered_parity_phase(engine, greedy)
+    batched_parity_phase(engine, greedy, "[parity-lanes]")
     del engine, params
     release()
-    launches_int8, _ = parity_phase(make_engine(build_params(torch.float32, int8=True), PARITY_NEW, int8=True),
-                                    "[parity-int8]")
+    engine = make_engine(build_params(torch.float32, int8=True), PARITY_NEW, int8=True)
+    launches_int8, greedy_int8 = parity_phase(engine, "[parity-int8]")
+    batched_parity_phase(engine, greedy_int8, "[parity-int8-lanes]")
+    del engine
     release()
 
-    # phase 5: timing, bf16; 5c: the "pallas" path and filtered sampling on
-    # the same weights; 5b: the int8 path
+    # phase 5: timing, bf16; 5c: the "pallas" path and filtered sampling, 5e
+    # the batched engine, on the same weights; 5b: the int8 path
     params = build_params(torch.bfloat16)
     engine = make_engine(params, TIMING_NEW)
     timing = timing_phase(engine)
@@ -739,7 +1028,10 @@ def main() -> int:
     log("[timing-pallas] " + json.dumps(timing_pallas))
     timing_filtered = filtered_timing_phase(engine)
     log("[timing-filtered] " + json.dumps(timing_filtered))
-    del engine, params
+    del engine
+    release()
+    timing_lanes = batched_timing_phase(params)
+    del params
     release()
     timing_int8 = timing_phase(make_engine(build_params(torch.bfloat16, int8=True), TIMING_NEW, int8=True))
     log("[timing-int8] " + json.dumps(timing_int8))
@@ -751,6 +1043,9 @@ def main() -> int:
         f"{timing['ttft_ar_ms']:.3f} ms, TTFT spec {timing_int8['ttft_spec_ms']:.3f} vs {timing['ttft_spec_ms']:.3f}, "
         f"TPOT AR {timing_int8['ar_tpot_ms']:.3f} vs {timing['ar_tpot_ms']:.3f}, TPOT spec "
         f"{timing_int8['spec_tpot_ms']:.3f} vs {timing['spec_tpot_ms']:.3f}")
+    for row in timing_lanes:
+        log(f"[timing-lanes] {smi}: R={row['lanes']:2d} tau {row['tau_mode']:6s} {row['tok_s_summed']:9.1f} tok/s "
+            f"summed, {row['ms_per_cycle']:7.2f} ms/cycle, TTFT {row['ttft_ms']:7.1f} ms")
     log(f"[timing] filtered spec TPOT {timing_filtered['spec_tpot_ms']:.3f} ms (tau "
         f"{timing_filtered['spec_tau']:.3f}, {timing_filtered['refinement_rounds_per_call']:.2f} refinement "
         f"rounds per sampling call) beside greedy spec TPOT {timing['spec_tpot_ms']:.3f} ms (tau "

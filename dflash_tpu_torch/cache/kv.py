@@ -8,12 +8,15 @@ overwrite rejected rows before they can be attended.
 
 Unlike the JAX functions, which return new arrays, the writes here update the
 cache tensors IN PLACE (slice assignment) and return the same cache; no copy
-of the cache is made per cycle.
+of the cache is made per cycle.  The batch axis holds the request lanes of
+the batched engine (``spec/batched.py``, JAX's ``STATE_AXES``: behind the
+layer axis, so a layer of the cache is the attention kernels' [lanes, T,
+n_kv, d]); a write takes one position per lane as a device tensor.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -83,19 +86,45 @@ def _check_window(S: int, T: int, write_pos: int) -> None:
         raise ValueError(f"cache write [{write_pos}, {write_pos + S}) outside [0, {T})")
 
 
+WritePos = Union[int, torch.Tensor]
+
+
+def _window(k_layer: torch.Tensor, S: int, write_pos: WritePos, max_pos: Optional[int]) -> tuple:
+    """The index of the rows a write covers, up to the position axis, after
+    the bounds check.  An int position: the slice [write_pos, write_pos + S).  A per-lane position
+    ([R] int tensor, lane axis just before the position axis): the
+    (lane, row) index pair of one indexed write, rows ``write_pos[r] + i``;
+    its bound is checked from ``max_pos``, the caller's host-known upper
+    bound on every lane's position, with no read of the tensor."""
+    T = k_layer.shape[-3]
+    if not isinstance(write_pos, torch.Tensor):
+        _check_window(S, T, write_pos)
+        return (Ellipsis, slice(write_pos, write_pos + S))
+    if max_pos is None:
+        raise ValueError("a per-lane write position needs max_pos, a host bound on it")
+    _check_window(S, T, max_pos)
+    R = write_pos.shape[0]
+    if k_layer.shape[-4] != R:
+        raise ValueError(f"{R} write positions for a cache of {k_layer.shape[-4]} lanes")
+    lanes = torch.arange(R, device=write_pos.device)[:, None]
+    rows = write_pos.to(torch.long)[:, None] + torch.arange(S, device=write_pos.device)
+    return (Ellipsis, lanes, rows)
+
+
 def update_layer(
     k_layer: torch.Tensor,  # [..., T, n_kv, d]: one layer [B, T, ...] or a stack [L, B, T, ...]
     v_layer: torch.Tensor,
     k_new: torch.Tensor,  # [..., S, n_kv, d]
     v_new: torch.Tensor,
-    write_pos: int,  # absolute position of the first new row
+    write_pos: WritePos,  # absolute position of the first new row: an int, or [B] per lane
+    max_pos: Optional[int] = None,  # per-lane positions: a host bound on every one of them
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write new rows at ``write_pos`` of the position axis, in place;
-    returns the same tensors."""
-    S = k_new.shape[-3]
-    _check_window(S, k_layer.shape[-3], write_pos)
-    k_layer[..., write_pos:write_pos + S, :, :] = k_new
-    v_layer[..., write_pos:write_pos + S, :, :] = v_new
+    returns the same tensors.  Per-lane positions write each lane's rows at
+    its own position in one indexed write per tensor."""
+    idx = _window(k_layer, k_new.shape[-3], write_pos, max_pos) + (slice(None), slice(None))
+    k_layer[idx] = k_new
+    v_layer[idx] = v_new
     return k_layer, v_layer
 
 
@@ -106,18 +135,19 @@ def update_layer_quant(
     vs_layer: torch.Tensor,
     k_new: torch.Tensor,  # [..., S, n_kv, d] in the activation dtype
     v_new: torch.Tensor,
-    write_pos: int,
+    write_pos: WritePos,
+    max_pos: Optional[int] = None,
 ):
-    """Quantize new rows and write them and their scales at ``write_pos``, in
-    place; returns the same tensors."""
-    S = k_new.shape[-3]
-    _check_window(S, k_layer.shape[-3], write_pos)
+    """Quantize new rows and write them and their scales at ``write_pos`` (an
+    int, or one per lane as in :func:`update_layer`), in place; returns the
+    same tensors."""
+    rows = _window(k_layer, k_new.shape[-3], write_pos, max_pos)
     kq, ks = quantize_rows(k_new)
     vq, vs = quantize_rows(v_new)
-    k_layer[..., write_pos:write_pos + S, :, :] = kq
-    ks_layer[..., write_pos:write_pos + S, :] = ks
-    v_layer[..., write_pos:write_pos + S, :, :] = vq
-    vs_layer[..., write_pos:write_pos + S, :] = vs
+    k_layer[rows + (slice(None), slice(None))] = kq
+    ks_layer[rows + (slice(None),)] = ks
+    v_layer[rows + (slice(None), slice(None))] = vq
+    vs_layer[rows + (slice(None),)] = vs
     return k_layer, ks_layer, v_layer, vs_layer
 
 
@@ -127,13 +157,15 @@ def write_prompt_rows(kv: AnyKVCache, k_rows: torch.Tensor, v_rows: torch.Tensor
     return update_any(kv, k_rows, v_rows, 0)
 
 
-def update_any(cache: AnyKVCache, k_new: torch.Tensor, v_new: torch.Tensor, write_pos: int) -> AnyKVCache:
+def update_any(cache: AnyKVCache, k_new: torch.Tensor, v_new: torch.Tensor, write_pos: WritePos,
+               max_pos: Optional[int] = None) -> AnyKVCache:
     """Write new K/V rows [L, B, S, n_kv, d] into every layer of ``cache`` (of
-    either type) at ``write_pos``, in place.  The JAX engine vmaps its
-    per-layer ``update_any`` over the layer axis; this takes the stacked rows
-    directly."""
+    either type) at ``write_pos`` (an int, or a [B] tensor with one position
+    per lane and its host bound ``max_pos``), in place.  The JAX engine vmaps
+    its per-layer ``update_any`` over the layer axis (and the batched engine
+    over lanes); this takes the stacked rows directly."""
     if isinstance(cache, QuantKVCache):
-        update_layer_quant(cache.k, cache.k_scale, cache.v, cache.v_scale, k_new, v_new, write_pos)
+        update_layer_quant(cache.k, cache.k_scale, cache.v, cache.v_scale, k_new, v_new, write_pos, max_pos)
     else:
-        update_layer(cache.k, cache.v, k_new, v_new, write_pos)
+        update_layer(cache.k, cache.v, k_new, v_new, write_pos, max_pos)
     return cache

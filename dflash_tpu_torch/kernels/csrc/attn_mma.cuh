@@ -351,7 +351,10 @@ __device__ __forceinline__ void store_split(const Warp<D, N>& w, bf16* out, floa
 }
 
 // One warp per (kv head, packed row): the splits' partials in split order.
-// A row that a split masks entirely (l = 0) merges with weight 0.
+// A row that a split masks entirely (l = 0) merges with weight 0.  Request
+// lane blockIdx.y (gridDim.y lanes, 1 for a single request) reads its own
+// workspace (n_splits * n_kv * M * (D + 2) floats a lane) and writes its own
+// output rows (R * nh * D a lane).
 template <int D>
 __global__ void __launch_bounds__(128)
 merge_splits(const float* __restrict__ ws, bf16* __restrict__ out, int R, int nh, int n_kv, int n_splits) {
@@ -361,6 +364,8 @@ merge_splits(const float* __restrict__ ws, bf16* __restrict__ out, int R, int nh
   if (row >= n_kv * M) return;
   const int hk = row / M, p = row % M, lane = threadIdx.x & 31;
   const long per_split = (long)n_kv * M;
+  ws += (long)blockIdx.y * n_splits * per_split * (D + 2);
+  out += (long)blockIdx.y * R * nh * D;
   const float* ml = ws + n_splits * per_split * D;
   float m_max = kNeg;
   for (int s = 0; s < n_splits; ++s) {
@@ -388,13 +393,14 @@ merge_splits(const float* __restrict__ ws, bf16* __restrict__ out, int R, int nh
 // Launch merge_splits as a programmatic dependent launch: its grid is
 // scheduled while the split grid runs and waits in griddepcontrol.wait for
 // the split grid's results (the split kernel calls
-// griddepcontrol.launch_dependents early).
+// griddepcontrol.launch_dependents early).  lanes: request lanes, each with
+// its own workspace and output rows.
 template <int D>
 __host__ cudaError_t launch_merge(const float* ws, bf16* out, int R, int nh, int n_kv, int n_splits,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, int lanes = 1) {
   const int M = (nh / n_kv) * R;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_kv * M + 3) / 4);
+  cfg.gridDim = dim3((n_kv * M + 3) / 4, lanes);
   cfg.blockDim = dim3(128);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

@@ -3,18 +3,21 @@
 // :111).  See dflash_tpu_torch/kernels/prefill_flash.py for what bounds it and
 // what this design does about that.
 //
-// q [S, nh, D], k/v [S, n_kv, D]; query row i attends key rows j <= i.  Any S:
-// the ragged last tile is masked.  Output [S, nh*D] in T.
+// q [L, S, nh, D], k/v [L, S, n_kv, D] (L request lanes, one prompt bucket
+// S for all); query row i of a lane attends key rows j <= i of the same lane.
+// Any S: the ragged last tile is masked.  Output [L, S, nh*D] in T.  Lanes
+// are the third grid axis (the Pallas kernel's lane grid dimension); a lane's
+// blocks compute exactly what a single-lane call on its rows computes.
 //
-// bf16: tensor cores (attn_mma.cuh).  Grid (n_kv, ceil(S / QR)): one block of
+// bf16: tensor cores (attn_mma.cuh).  Grid (n_kv, ceil(S / QR), L): one block of
 // 4 warps per (kv head, tile of QR = 64 / g positions) serves all g query
 // heads of the kv head as 64 packed rows (head-major: packed row p is query
 // head hk * g + p / QR at position row0 + p % QR), so each K/V tile is staged
 // once for the g heads.  Key tiles of 64 rows run only up to the block's last
 // position; only the tile(s) crossing the diagonal are masked.
 //
-// f32: the FMA walk of attn_tile.cuh.  Grid (nh, ceil(S / RQ)): one
-// block per (query head, tile of RQ rows).  A block walks key tiles only up to
+// f32: the FMA walk of attn_tile.cuh.  Grid (nh, ceil(S / RQ), L): one
+// block per (query head, tile of RQ rows, lane).  A block walks key tiles only up to
 // its last row's diagonal, so tiles above the diagonal are neither loaded nor
 // computed.
 //
@@ -39,6 +42,10 @@ prefill_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (nh / n_kv);
   const long q_stride = (long)nh * D;
   const long kv_stride = (long)n_kv * D;
+  q += (long)blockIdx.z * S * q_stride;  // the request lane's rows
+  out += (long)blockIdx.z * S * q_stride;
+  k += (long)blockIdx.z * S * kv_stride;
+  v += (long)blockIdx.z * S * kv_stride;
 
   load_rows<T, D, RQ, D>(sm.q, q + row0 * q_stride + h * D, min(RQ, S - row0), q_stride);
   RowState<D, kRowsPerWarp> st;
@@ -75,6 +82,10 @@ prefill_flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const int row0 = (gridDim.y - 1 - blockIdx.y) * QR;
   const long q_stride = (long)nh * D;
   const long kv_stride = (long)n_kv * D;
+  q += (long)blockIdx.z * S * q_stride;  // the request lane's rows
+  out += (long)blockIdx.z * S * q_stride;
+  k += (long)blockIdx.z * S * kv_stride;
+  v += (long)blockIdx.z * S * kv_stride;
 
   // packed row p: query head hk * g + p / QR at position row0 + p % QR
   mma::stage_rows<D, kMmaRows, 32 * kMmaWarps>(sm.q, [&](int p) -> const bf16* {
@@ -104,10 +115,10 @@ prefill_flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 }
 
 template <typename T, int D>
-static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int S, int nh,
+static cudaError_t launch(const void* q, const void* k, const void* v, void* out, int L, int S, int nh,
                           int n_kv, float scale, cudaStream_t stream) {
   constexpr int RQ = kWarps * kRowsPerWarp;
-  dim3 grid(nh, (S + RQ - 1) / RQ);
+  dim3 grid(nh, (S + RQ - 1) / RQ, L);
   prefill_flash_kernel<T, D><<<grid, kThreads, 0, stream>>>((const T*)q, (const T*)k,
                                                             (const T*)v, (T*)out, S, nh, n_kv,
                                                             scale);
@@ -115,14 +126,14 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
 }
 
 template <int D>
-static cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int S, int nh,
+static cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int L, int S, int nh,
                               int n_kv, float scale, cudaStream_t stream) {
   static bool smem_set = false;
   constexpr int smem = sizeof(mma::Smem<D, kMmaRows, kMmaKeys>);
   cudaError_t err = mma::allow_smem(prefill_flash_mma_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
   const int QR = kMmaRows / (nh / n_kv);
-  dim3 grid(n_kv, (S + QR - 1) / QR);
+  dim3 grid(n_kv, (S + QR - 1) / QR, L);
   prefill_flash_mma_kernel<D><<<grid, 32 * kMmaWarps, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S,
       nh, n_kv, scale * mma::kLog2e);
@@ -131,17 +142,20 @@ static cudaError_t launch_mma(const void* q, const void* k, const void* v, void*
 
 }  // namespace dflash
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-// bf16 takes g = nh / n_kv <= 64 query heads per kv head.
+// dtype: 0 = float32, 1 = bfloat16.  L request lanes of S rows each (q
+// [L, S, nh, D], k/v [L, S, n_kv, D], out [L, S, nh * D]).  Returns a
+// cudaError_t (0 = launched).  bf16 takes g = nh / n_kv <= 64 query heads per
+// kv head.
 extern "C" int dflash_prefill_flash(int dtype, int head_dim, const void* q, const void* k,
-                                    const void* v, void* out, int S, int nh, int n_kv,
+                                    const void* v, void* out, int L, int S, int nh, int n_kv,
                                     float scale, void* stream) {
   using namespace dflash;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(q, k, v, out, S, nh, n_kv, scale, s);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(q, k, v, out, S, nh, n_kv, scale, s);
+  if (L < 1 || L > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && head_dim == 128) return launch<float, 128>(q, k, v, out, L, S, nh, n_kv, scale, s);
+  if (dtype == 0 && head_dim == 64) return launch<float, 64>(q, k, v, out, L, S, nh, n_kv, scale, s);
   if (dtype == 1 && nh / n_kv > kMmaRows) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(q, k, v, out, S, nh, n_kv, scale, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(q, k, v, out, S, nh, n_kv, scale, s);
+  if (dtype == 1 && head_dim == 128) return launch_mma<128>(q, k, v, out, L, S, nh, n_kv, scale, s);
+  if (dtype == 1 && head_dim == 64) return launch_mma<64>(q, k, v, out, L, S, nh, n_kv, scale, s);
   return (int)cudaErrorInvalidValue;
 }

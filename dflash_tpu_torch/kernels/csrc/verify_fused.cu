@@ -4,12 +4,18 @@
 // dflash_tpu_torch/kernels/verify_fused.py for what bounds it and what this
 // design does about that.
 //
-// Queries q [R, nh, D] (R = C*B rows); part one is the shared ctx K/V
-// [T, n_kv, D], read ONLY for rows < ctx_len (rows at or past the frontier are
-// stale cache contents and are never loaded); part two is the block K/V
-// [R, n_kv, D] under an [R, R] mask (the wrapper folds candidate isolation into
-// it).  The result is the softmax over both parts.  Query head h reads kv
-// head h / (nh / n_kv).  Output [R, nh*D] in T.
+// Queries q [L, R, nh, D] (L request lanes, R = C*B rows a lane); part one is
+// the lane's ctx K/V [T, n_kv, D], read ONLY for rows < the lane's frontier
+// ctx_len = min(starts[lane], max_start) (rows at or past it are stale cache
+// contents and are never loaded); part two is the lane's block K/V
+// [R, n_kv, D] under an [R, R] mask shared by the lanes (the wrapper folds
+// candidate isolation into it).  The result is the softmax over both parts.
+// Query head h reads kv head h / (nh / n_kv).  Output [L, R, nh*D] in T.
+// The frontiers are device data, read by the kernel (the Pallas kernel's
+// scalar-prefetched starts); the host passes only max_start, a bound on them,
+// which sizes the grid.  starts == nullptr: every lane's frontier is
+// max_start (the single-request entry, L = 1).  Every lane's tensors are
+// contiguous blocks of the lane-major arrays, so a lane is a pointer offset.
 //
 // The ctx K/V are in q's type T, or int8 with f32 scales [T, n_kv] per row
 // and kv head: the key scale multiplies the score, s * (ks[t] * scale), and
@@ -26,19 +32,23 @@
 // tile masked), and split n_ctx_splits walks the R block keys under the mask
 // (mask[row * R + key], never by position: the draft's mask is all-true and
 // C > 1 isolates candidates), so a block never mixes the two sources.  With
-// ctx_len == 0 that is the only split and the block writes the output;
+// max_start == 0 that is the only split and the block writes the output;
 // otherwise each split writes f32 partials and a second, programmatic
 // dependent launch merges them in split order (no atomics: the same bits on
 // every run).  int8 ctx tiles are staged with cp.async as int8 (16 values per
 // 16 bytes) with their scales, then widened exactly to bf16 in the padded
 // tile that ldmatrix reads; the key scales (times scale * log2 e) and value
 // scales enter the tile step as per-key multipliers.  Rows and scales past
-// ctx_len are zero-filled in shared memory, never loaded.
+// ctx_len are zero-filled in shared memory, never loaded.  Lanes are folded
+// into the third grid axis (lane-major over the row groups); the ctx splits
+// are sized for max_start, so a lane whose frontier lies at or below a
+// split's first key runs that split with no tile and writes a partial with
+// l = 0, which the merge weights 0.
 //
 // f32 (either ctx): the FMA walk of attn_tile.cuh, both parts through one f32
-// online softmax, grid (nh, ceil(R / RQ)): one block per (query head, tile of
-// RQ rows).  A row's result does not depend on R, which the exact f32
-// spec == AR run needs.
+// online softmax, grid (nh, ceil(R / RQ), L): one block per (query head, tile
+// of RQ rows, lane).  A row's result depends neither on R nor on the other
+// lanes, which the exact f32 spec == AR run and the batched engine need.
 #include <type_traits>
 
 #include "attn_mma.cuh"
@@ -46,13 +56,20 @@
 
 namespace dflash {
 
+// The frontier of request lane `lane`: starts[lane] from device memory, kept
+// within the bound the grid was sized for; max_start when starts is null.
+__device__ __forceinline__ int lane_frontier(const int* starts, int lane, int max_start) {
+  return starts == nullptr ? max_start : max(0, min(starts[lane], max_start));
+}
+
 template <typename T, typename C, int D, int RPW>
 __global__ void __launch_bounds__(kThreads)
 verify_fused_kernel(const T* __restrict__ q, const C* __restrict__ ctx_k,
                     const float* __restrict__ ctx_ks, const C* __restrict__ ctx_v,
                     const float* __restrict__ ctx_vs, const T* __restrict__ blk_k,
                     const T* __restrict__ blk_v, const uint8_t* __restrict__ mask,
-                    T* __restrict__ out, int R, int nh, int n_kv, int ctx_len, float scale) {
+                    T* __restrict__ out, const int* __restrict__ starts, int n_ctx, int R, int nh,
+                    int n_kv, int max_start, float scale) {
   constexpr int RQ = kWarps * RPW;
   constexpr bool kQuant = std::is_same<C, int8_t>::value;
   __shared__ Smem<D, RQ> sm;
@@ -62,6 +79,18 @@ verify_fused_kernel(const T* __restrict__ q, const C* __restrict__ ctx_k,
   const int lane = threadIdx.x & 31;
   const long q_stride = (long)nh * D;
   const long kv_stride = (long)n_kv * D;
+  const int req = blockIdx.z;  // the request lane
+  const int ctx_len = lane_frontier(starts, req, max_start);
+  q += req * R * q_stride;
+  out += req * R * q_stride;
+  ctx_k += req * n_ctx * kv_stride;
+  ctx_v += req * n_ctx * kv_stride;
+  if (kQuant) {
+    ctx_ks += (long)req * n_ctx * n_kv;
+    ctx_vs += (long)req * n_ctx * n_kv;
+  }
+  blk_k += req * R * kv_stride;
+  blk_v += req * R * kv_stride;
 
   load_rows<T, D, RQ, D>(sm.q, q + row0 * q_stride + h * D, min(RQ, R - row0), q_stride);
   RowState<D, RPW> st;
@@ -98,23 +127,28 @@ verify_fused_kernel(const T* __restrict__ q, const C* __restrict__ ctx_k,
   store_rows<T, D, RPW>(out + h * D, st, row0, R, q_stride);
 }
 
+// The shape of a call: L lanes of R query rows, n_ctx ctx rows a lane.
+struct Lanes {
+  const int* starts;  // [L] frontiers on the device, or null: max_start for every lane
+  int L, n_ctx, R, nh, n_kv, max_start;
+};
+
 template <typename T, typename C, int D>
 static cudaError_t launch(const void* q, const void* ck, const float* cks, const void* cv,
                           const float* cvs, const void* bk, const void* bv, const uint8_t* mask,
-                          void* out, int R, int nh, int n_kv, int ctx_len, float scale,
-                          cudaStream_t stream) {
+                          void* out, const Lanes& a, float scale, cudaStream_t stream) {
   // Few rows (the AR step's R = 1): one row per warp, so idle rows cost less.
-  if (R <= kWarps) {
-    dim3 grid(nh, (R + kWarps - 1) / kWarps);
+  if (a.R <= kWarps) {
+    dim3 grid(a.nh, (a.R + kWarps - 1) / kWarps, a.L);
     verify_fused_kernel<T, C, D, 1><<<grid, kThreads, 0, stream>>>(
         (const T*)q, (const C*)ck, cks, (const C*)cv, cvs, (const T*)bk, (const T*)bv, mask,
-        (T*)out, R, nh, n_kv, ctx_len, scale);
+        (T*)out, a.starts, a.n_ctx, a.R, a.nh, a.n_kv, a.max_start, scale);
   } else {
     constexpr int RQ = kWarps * 4;
-    dim3 grid(nh, (R + RQ - 1) / RQ);
+    dim3 grid(a.nh, (a.R + RQ - 1) / RQ, a.L);
     verify_fused_kernel<T, C, D, 4><<<grid, kThreads, 0, stream>>>(
         (const T*)q, (const C*)ck, cks, (const C*)cv, cvs, (const T*)bk, (const T*)bv, mask,
-        (T*)out, R, nh, n_kv, ctx_len, scale);
+        (T*)out, a.starts, a.n_ctx, a.R, a.nh, a.n_kv, a.max_start, scale);
   }
   return cudaGetLastError();
 }
@@ -151,27 +185,44 @@ __device__ __forceinline__ void widen16(mma::bf16* dst, const int8_t* src) {
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
-// Packed rows [kMmaRows * blockIdx.z, +kMmaRows) of kv head blockIdx.y over
-// split blockIdx.x: ctx keys [split * split_tiles * 64, ..) below ctx_len
-// for split < n_ctx_splits, else the R block keys.  ws == nullptr: one split,
-// write out.  QUANT: the ctx K/V are int8 with scales ks / vs.
+// Packed rows [kMmaRows * rg, +kMmaRows) of kv head blockIdx.y of request
+// lane req (blockIdx.z = req * n_rg + rg) over split blockIdx.x: ctx keys
+// [split * split_tiles * 64, ..) below the lane's frontier for split <
+// n_ctx_splits, else the R block keys.  ws == nullptr: one split, write out.
+// QUANT: the ctx K/V are int8 with scales ks / vs.
 template <int D, bool QUANT>
 __global__ void __launch_bounds__(32 * kMmaWarps)
 verify_fused_mma_kernel(const mma::bf16* __restrict__ q, const void* __restrict__ ctx_k,
                         const float* __restrict__ ctx_ks, const void* __restrict__ ctx_v,
                         const float* __restrict__ ctx_vs, const mma::bf16* __restrict__ blk_k,
                         const mma::bf16* __restrict__ blk_v, const uint8_t* __restrict__ mask,
-                        mma::bf16* __restrict__ out, float* __restrict__ ws, int R, int nh, int n_kv,
-                        int ctx_len, int n_ctx_splits, int split_tiles, float scale_log2) {
+                        mma::bf16* __restrict__ out, float* __restrict__ ws, const int* __restrict__ starts,
+                        int n_ctx, int R, int nh, int n_kv, int max_start, int n_ctx_splits, int split_tiles,
+                        float scale_log2) {
   using mma::bf16;
   constexpr int NT = 32 * kMmaWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& all = *reinterpret_cast<MmaSmem<D, QUANT>*>(smem_raw);
   auto& sm = all.t;
   const int g = nh / n_kv, M = g * R;
-  const int split = blockIdx.x, hk = blockIdx.y, p_base = blockIdx.z * kMmaRows;
+  const int n_rg = (M + kMmaRows - 1) / kMmaRows;  // row groups a lane
+  const int req = blockIdx.z / n_rg;               // the request lane
+  const int split = blockIdx.x, hk = blockIdx.y, p_base = (blockIdx.z % n_rg) * kMmaRows;
   const long q_stride = (long)nh * D;
   const long kv_stride = (long)n_kv * D;
+  const int ctx_len = lane_frontier(starts, req, max_start);
+  const long ctx_bytes = (long)n_ctx * kv_stride * (QUANT ? 1 : (long)sizeof(bf16));  // a lane's ctx K
+  q += req * R * q_stride;
+  out += req * R * q_stride;
+  ctx_k = static_cast<const char*>(ctx_k) + req * ctx_bytes;
+  ctx_v = static_cast<const char*>(ctx_v) + req * ctx_bytes;
+  if (QUANT) {
+    ctx_ks += (long)req * n_ctx * n_kv;
+    ctx_vs += (long)req * n_ctx * n_kv;
+  }
+  blk_k += req * R * kv_stride;
+  blk_v += req * R * kv_stride;
+  if (ws != nullptr) ws += (long)req * gridDim.x * n_kv * M * (D + 2);
 
   mma::stage_rows<D, kMmaRows, NT>(sm.q, [&](int pl) -> const bf16* {
     const int p = p_base + pl;
@@ -190,7 +241,12 @@ verify_fused_mma_kernel(const mma::bf16* __restrict__ q, const void* __restrict_
     mma::stage_rows<D, kMmaKeys, NT>(sm.v[buf], [&](int r) { return r < nk ? vb + r * kv_stride : nullptr; });
   };
 
-  if (split < n_ctx_splits) {  // part one: ctx keys [key0, key_end)
+  if (split < n_ctx_splits && split * split_tiles * kMmaKeys >= ctx_len) {
+    // a split at or past this lane's frontier: no key; its partial (l = 0)
+    // merges with weight 0.  Only the Q rows were issued.
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+  } else if (split < n_ctx_splits) {  // part one: ctx keys [key0, key_end)
     const int key0 = split * split_tiles * kMmaKeys;
     const int key_end = min(key0 + split_tiles * kMmaKeys, ctx_len);
     const int n_tiles = (key_end - key0 + kMmaKeys - 1) / kMmaKeys;
@@ -264,11 +320,12 @@ verify_fused_mma_kernel(const mma::bf16* __restrict__ q, const void* __restrict_
 template <int D, bool QUANT>
 static cudaError_t launch_mma(const void* q, const void* ck, const float* cks, const void* cv,
                               const float* cvs, const void* bk, const void* bv, const uint8_t* mask,
-                              void* out, float* ws, int R, int nh, int n_kv, int ctx_len, int split_tiles,
-                              float scale, cudaStream_t stream) {
+                              void* out, float* ws, const Lanes& a, int split_tiles, float scale,
+                              cudaStream_t stream) {
   if (split_tiles < 1) return cudaErrorInvalidValue;
+  const int R = a.R, nh = a.nh, n_kv = a.n_kv;
   const int M = (nh / n_kv) * R;
-  const int n_ctx_tiles = (ctx_len + kMmaKeys - 1) / kMmaKeys;
+  const int n_ctx_tiles = (a.max_start + kMmaKeys - 1) / kMmaKeys;
   const int n_ctx_splits = (n_ctx_tiles + split_tiles - 1) / split_tiles;
   const int n_splits = n_ctx_splits + 1;  // + the block part
   if (n_splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
@@ -277,77 +334,79 @@ static cudaError_t launch_mma(const void* q, const void* ck, const float* cks, c
   constexpr int smem = sizeof(MmaSmem<D, QUANT>);
   cudaError_t err = mma::allow_smem(verify_fused_mma_kernel<D, QUANT>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(n_splits, n_kv, (M + kMmaRows - 1) / kMmaRows);
+  dim3 grid(n_splits, n_kv, a.L * ((M + kMmaRows - 1) / kMmaRows));
   using mma::bf16;
   verify_fused_mma_kernel<D, QUANT><<<grid, 32 * kMmaWarps, smem, stream>>>(
-      (const bf16*)q, ck, cks, cv, cvs, (const bf16*)bk, (const bf16*)bv, mask, (bf16*)out, ws, R, nh, n_kv,
-      ctx_len, n_ctx_splits, split_tiles, scale * mma::kLog2e);
+      (const bf16*)q, ck, cks, cv, cvs, (const bf16*)bk, (const bf16*)bv, mask, (bf16*)out, ws, a.starts,
+      a.n_ctx, R, nh, n_kv, a.max_start, n_ctx_splits, split_tiles, scale * mma::kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || ws == nullptr) return err;
-  return mma::launch_merge<D>(ws, (bf16*)out, R, nh, n_kv, n_splits, stream);
+  return mma::launch_merge<D>(ws, (bf16*)out, R, nh, n_kv, n_splits, stream, a.L);
 }
 
 // The ctx type: T itself, or int8 with scales.
 template <typename T, int D>
 static cudaError_t launch_ctx(bool quant, const void* q, const void* ck, const float* cks,
                               const void* cv, const float* cvs, const void* bk, const void* bv,
-                              const uint8_t* mask, void* out, int R, int nh, int n_kv, int ctx_len,
-                              float scale, cudaStream_t stream) {
-  if (quant)
-    return launch<T, int8_t, D>(q, ck, cks, cv, cvs, bk, bv, mask, out, R, nh, n_kv, ctx_len,
-                                scale, stream);
-  return launch<T, T, D>(q, ck, nullptr, cv, nullptr, bk, bv, mask, out, R, nh, n_kv, ctx_len,
-                         scale, stream);
+                              const uint8_t* mask, void* out, const Lanes& a, float scale,
+                              cudaStream_t stream) {
+  if (quant) return launch<T, int8_t, D>(q, ck, cks, cv, cvs, bk, bv, mask, out, a, scale, stream);
+  return launch<T, T, D>(q, ck, nullptr, cv, nullptr, bk, bv, mask, out, a, scale, stream);
 }
 
 static cudaError_t dispatch(int dtype, int head_dim, bool quant, const void* q, const void* ck,
                             const float* cks, const void* cv, const float* cvs, const void* bk,
-                            const void* bv, const void* mask, void* out, void* workspace, int R, int nh,
-                            int n_kv, int ctx_len, int split_tiles, float scale, void* stream) {
+                            const void* bv, const void* mask, void* out, void* workspace, const Lanes& a,
+                            int split_tiles, float scale, void* stream) {
   const uint8_t* m = (const uint8_t*)mask;
   float* ws = (float*)workspace;
   cudaStream_t s = (cudaStream_t)stream;
+  if (a.L < 1 || a.max_start < 0 || a.max_start > a.n_ctx) return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 128)
-    return launch_ctx<float, 128>(quant, q, ck, cks, cv, cvs, bk, bv, m, out, R, nh, n_kv, ctx_len,
-                                  scale, s);
+    return launch_ctx<float, 128>(quant, q, ck, cks, cv, cvs, bk, bv, m, out, a, scale, s);
   if (dtype == 0 && head_dim == 64)
-    return launch_ctx<float, 64>(quant, q, ck, cks, cv, cvs, bk, bv, m, out, R, nh, n_kv, ctx_len,
-                                 scale, s);
+    return launch_ctx<float, 64>(quant, q, ck, cks, cv, cvs, bk, bv, m, out, a, scale, s);
   if (dtype == 1 && head_dim == 128)
-    return quant ? launch_mma<128, true>(q, ck, cks, cv, cvs, bk, bv, m, out, ws, R, nh, n_kv, ctx_len,
-                                         split_tiles, scale, s)
-                 : launch_mma<128, false>(q, ck, nullptr, cv, nullptr, bk, bv, m, out, ws, R, nh, n_kv,
-                                          ctx_len, split_tiles, scale, s);
+    return quant ? launch_mma<128, true>(q, ck, cks, cv, cvs, bk, bv, m, out, ws, a, split_tiles, scale, s)
+                 : launch_mma<128, false>(q, ck, nullptr, cv, nullptr, bk, bv, m, out, ws, a, split_tiles,
+                                          scale, s);
   if (dtype == 1 && head_dim == 64)
-    return quant ? launch_mma<64, true>(q, ck, cks, cv, cvs, bk, bv, m, out, ws, R, nh, n_kv, ctx_len,
-                                        split_tiles, scale, s)
-                 : launch_mma<64, false>(q, ck, nullptr, cv, nullptr, bk, bv, m, out, ws, R, nh, n_kv,
-                                         ctx_len, split_tiles, scale, s);
+    return quant ? launch_mma<64, true>(q, ck, cks, cv, cvs, bk, bv, m, out, ws, a, split_tiles, scale, s)
+                 : launch_mma<64, false>(q, ck, nullptr, cv, nullptr, bk, bv, m, out, ws, a, split_tiles,
+                                         scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace dflash
 
 // dtype: 0 = float32, 1 = bfloat16 (q, block K/V, out; and the ctx K/V).
-// bf16 only: split_tiles = 64-key ctx tiles per split, workspace =
-// n_splits * n_kv * g * R * (D + 2) floats, n_splits = ceil(ceil(ctx_len / 64)
-// / split_tiles) + 1, when n_splits > 1 (else may be null).  Returns a
-// cudaError_t (0 = launched).
-extern "C" int dflash_verify_fused(int dtype, int head_dim, const void* q, const void* ctx_k,
-                                   const void* ctx_v, const void* blk_k, const void* blk_v,
-                                   const void* mask, void* out, void* workspace, int R, int nh, int n_kv,
-                                   int ctx_len, int split_tiles, float scale, void* stream) {
+// L request lanes: q [L, R, nh, D], ctx K/V [L, n_ctx, n_kv, D], block K/V
+// [L, R, n_kv, D], out [L, R, nh * D]; mask [R, R], shared.  starts: int32
+// [L] frontiers on the device (lane l reads min(starts[l], max_start)), or
+// null for max_start in every lane; 0 <= max_start <= n_ctx.  bf16 only:
+// split_tiles = 64-key ctx tiles per split, workspace = L * n_splits * nh * R
+// * (D + 2) floats, n_splits = ceil(ceil(max_start / 64) / split_tiles) + 1,
+// when n_splits > 1 (else may be null).  Returns a cudaError_t (0 = launched).
+extern "C" int dflash_verify_fused_lanes(int dtype, int head_dim, const void* q, const void* ctx_k,
+                                         const void* ctx_v, const void* blk_k, const void* blk_v,
+                                         const void* mask, void* out, void* workspace, const void* starts,
+                                         int L, int n_ctx, int R, int nh, int n_kv, int max_start,
+                                         int split_tiles, float scale, void* stream) {
+  const dflash::Lanes a{(const int*)starts, L, n_ctx, R, nh, n_kv, max_start};
   return (int)dflash::dispatch(dtype, head_dim, false, q, ctx_k, nullptr, ctx_v, nullptr, blk_k, blk_v,
-                               mask, out, workspace, R, nh, n_kv, ctx_len, split_tiles, scale, stream);
+                               mask, out, workspace, a, split_tiles, scale, stream);
 }
 
-// The int8 ctx: ctx_k / ctx_v [T, n_kv, D] int8, ctx_ks / ctx_vs [T, n_kv] f32.
-extern "C" int dflash_verify_fused_int8(int dtype, int head_dim, const void* q, const void* ctx_k,
-                                        const void* ctx_ks, const void* ctx_v, const void* ctx_vs,
-                                        const void* blk_k, const void* blk_v, const void* mask,
-                                        void* out, void* workspace, int R, int nh, int n_kv, int ctx_len,
-                                        int split_tiles, float scale, void* stream) {
+// The int8 ctx: ctx_k / ctx_v [L, n_ctx, n_kv, D] int8, ctx_ks / ctx_vs
+// [L, n_ctx, n_kv] f32.
+extern "C" int dflash_verify_fused_int8_lanes(int dtype, int head_dim, const void* q, const void* ctx_k,
+                                              const void* ctx_ks, const void* ctx_v, const void* ctx_vs,
+                                              const void* blk_k, const void* blk_v, const void* mask,
+                                              void* out, void* workspace, const void* starts, int L,
+                                              int n_ctx, int R, int nh, int n_kv, int max_start,
+                                              int split_tiles, float scale, void* stream) {
+  const dflash::Lanes a{(const int*)starts, L, n_ctx, R, nh, n_kv, max_start};
   return (int)dflash::dispatch(dtype, head_dim, true, q, ctx_k, (const float*)ctx_ks, ctx_v,
-                               (const float*)ctx_vs, blk_k, blk_v, mask, out, workspace, R, nh, n_kv,
-                               ctx_len, split_tiles, scale, stream);
+                               (const float*)ctx_vs, blk_k, blk_v, mask, out, workspace, a, split_tiles,
+                               scale, stream);
 }

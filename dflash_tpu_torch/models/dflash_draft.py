@@ -9,22 +9,22 @@ state: after each verify the newly committed feature rows are projected and
 written at their absolute positions.
 
 The draft attention (ctx rows < ctx_len plus every block row) goes through
-the ``verify_fused`` kernel with an all-true block mask: the same keys that
-JAX's ``gqa_attention`` attends over the concatenation [ctx cache | block],
-without the concatenation copy.  ``fc`` and the layer weights may be int8
+the lane entry of the ``verify_fused`` kernel with an all-true block mask:
+the same keys that JAX's ``gqa_attention`` attends over the concatenation
+[ctx cache | block], without the concatenation copy.  ``fc`` and the layer weights may be int8
 ``QTensor``s (``quant/quantize.py``); the context cache stays in the
 activation dtype even when the target's cache is int8, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from dflash_tpu_torch.cache.kv import KVCache, update_any
 from dflash_tpu_torch.core.config import DraftConfig
-from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention
+from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention_lanes
 from dflash_tpu_torch.models import qwen3
 from dflash_tpu_torch.ops.linear import linear
 from dflash_tpu_torch.ops.norms import rms_norm
@@ -78,30 +78,37 @@ def append_ctx(
     cache: KVCache,
     features: torch.Tensor,  # [B, S, n_taps * H]
     positions: torch.Tensor,  # [B, S]
-    write_pos: int,
+    write_pos,  # an int, or [B] per lane (then max_pos bounds it)
+    max_pos: Optional[int] = None,
 ) -> KVCache:
     """Project feature rows and write their K/V into the draft context cache
-    (in place; returns the same cache)."""
+    (in place; returns the same cache), at one position, or at each lane's
+    own (``cache.kv.update_any``)."""
     k_new, v_new = ctx_kv(params, cfg, features, positions)
-    return update_any(cache, k_new, v_new, write_pos)
+    return update_any(cache, k_new, v_new, write_pos, max_pos)
 
 
 def forward(
     params: dict,
     cfg: DraftConfig,
-    noise_embeds: torch.Tensor,  # [1, Bk, H] target embedding of the current block
-    block_positions: torch.Tensor,  # [1, Bk] absolute positions
-    ctx_cache: KVCache,  # [L_d, 1, T, n_kv, d] context K/V
-    ctx_len: int,  # valid context frontier (== start)
+    noise_embeds: torch.Tensor,  # [R, Bk, H] target embedding of the current block, R lanes
+    block_positions: torch.Tensor,  # [R, Bk] absolute positions
+    ctx_cache: KVCache,  # [L_d, R, T, n_kv, d] context K/V
+    ctx_len,  # valid context frontier (== start): an int for every lane, or [R] int32 on the device
+    max_start: Optional[int] = None,  # a [R] ctx_len: a host bound on it
 ) -> torch.Tensor:
     """One non-causal draft forward over the noise block: every block query
     attends all context rows < ctx_len plus every block row.  Returns
-    final-norm'd hidden states [1, Bk, H]; the caller applies the target's
-    lm_head to rows 1..Bk-1."""
+    final-norm'd hidden states [R, Bk, H]; the caller applies the target's
+    lm_head to rows 1..Bk-1.  The R lanes run in one forward, each layer's
+    attention one lane call of ``verify_fused`` (a host frontier is every
+    lane's, passed as the kernel's bound with no device copy)."""
     m = cfg.model
-    B, Bk, _ = noise_embeds.shape
-    if B != 1:
-        raise ValueError(f"draft forward takes one sequence (the engine's), got batch {B}")
+    Bk = noise_embeds.shape[1]
+    if not isinstance(ctx_len, torch.Tensor):
+        ctx_len, max_start = None, int(ctx_len)
+    elif max_start is None:
+        raise ValueError("per-lane frontiers need max_start, a host bound on them")
     scale = m.head_dim ** -0.5
     cos, sin = rope_cos_sin(block_positions, m.head_dim, m.rope_theta, m.rope_scaling)
     all_true = torch.ones((Bk, Bk), dtype=torch.bool, device=noise_embeds.device)
@@ -109,8 +116,8 @@ def forward(
     for l in range(m.num_hidden_layers):
         p = qwen3._layer(params, l)
         q, k, v = qwen3._qkv(p, m, hidden, cos, sin)
-        attn = fused_ctx_block_attention(
-            q, ctx_cache.k[l], None, ctx_cache.v[l], None, k, v, ctx_len, all_true, scale
-        )
+        attn = fused_ctx_block_attention_lanes(
+            q[:, None], ctx_cache.k[l], None, ctx_cache.v[l], None, k[:, None], v[:, None], ctx_len,
+            max_start, all_true, scale)[:, 0]
         hidden = qwen3._finish_layer(p, m, hidden, attn)
     return rms_norm(hidden, params["final_norm"], m.rms_norm_eps)

@@ -28,7 +28,7 @@ from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache, update_layer
 from dflash_tpu_torch.core.config import ModelConfig
 from dflash_tpu_torch.kernels.attention import verify_attention
 from dflash_tpu_torch.kernels.prefill_flash import flash_prefill_attention
-from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention
+from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention, fused_ctx_block_attention_lanes
 from dflash_tpu_torch.ops.linear import linear
 from dflash_tpu_torch.ops.norms import rms_norm
 from dflash_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -212,12 +212,14 @@ class PrefillResult(NamedTuple):
 def forward_prefill(
     params: dict,
     cfg: ModelConfig,
-    embeds: torch.Tensor,  # [1, S, H]
-    positions: torch.Tensor,  # [1, S] = arange(S)
+    embeds: torch.Tensor,  # [R, S, H]: one prompt, or R lanes padded to one bucket
+    positions: torch.Tensor,  # [1, S] (or [R, S]) = arange(S)
     tap_ids: Tuple[int, ...] = (),
 ) -> PrefillResult:
     """Cache-free causal prefill over S prompt tokens; the produced K/V rows
-    are returned for the caller to write into the cache at position 0.
+    are returned for the caller to write into the cache at position 0.  R
+    lanes (the batched prefill) run as one forward: the products on all
+    R * S rows, each layer's attention one lane call of ``prefill_flash``.
 
     Causality is positional (row i attends rows j <= i), which is the JAX
     mask ``positions[:, None] >= positions[None, :]`` for the arange
@@ -243,43 +245,56 @@ def forward_prefill(
 
 
 class CandidateForwardResult(NamedTuple):
-    hidden: torch.Tensor  # [C, B, H]
+    hidden: torch.Tensor  # [C, B, H] ([R, C, B, H] with lanes)
     taps: torch.Tensor  # [C, B, n_taps * H]
-    blk_k: torch.Tensor  # [L, C, B, n_kv, d]: per-candidate block keys
+    blk_k: torch.Tensor  # [L, C, B, n_kv, d]: per-candidate block keys ([L, R, C, B, ...])
     blk_v: torch.Tensor  # [L, C, B, n_kv, d]
 
 
 def forward_block_candidates(
     params: dict,
     cfg: ModelConfig,
-    embeds: torch.Tensor,  # [C, B, H]: C candidate blocks
-    positions: torch.Tensor,  # [C, B] absolute positions (identical rows)
-    ctx_kv: AnyKVCache,  # committed-context cache (bf16/f32 or int8), batch 1
-    ctx_len: int,  # frontier: ctx rows < ctx_len are valid
+    embeds: torch.Tensor,  # [C, B, H]: C candidate blocks; [R, C, B, H] with R lanes
+    positions: torch.Tensor,  # [C, B] absolute positions (identical rows); [R, C, B]
+    ctx_kv: AnyKVCache,  # committed-context cache (bf16/f32 or int8): batch 1, or R lanes
+    ctx_len,  # frontier (ctx rows < ctx_len are valid): an int; lanes: [R] int32 on the device
     tap_ids: Tuple[int, ...] = (),
     blk_mask: Optional[torch.Tensor] = None,  # [B, B] override of the causal block mask
+    max_start: Optional[int] = None,  # lanes: a host bound on every lane's frontier
 ) -> CandidateForwardResult:
     """Verify C candidate blocks in one forward over a SHARED, read-only
     context cache.  Query i of candidate c attends every ctx row < ctx_len
     plus its own block rows allowed by ``blk_mask`` (causal by default).  The
-    block K/V are returned for the caller to commit."""
+    block K/V are returned for the caller to commit.
+
+    Lanes (4-D ``embeds``): R requests in one forward, lane r over its own
+    cache lane ``ctx_kv.k[l][r]`` below its own frontier ``ctx_len[r]``; the
+    products run on all R * C * B rows at once, so the lanes share each
+    weight read, and each layer's attention is one lane call of
+    ``verify_fused``."""
     _require_dense(cfg)
-    C, B, _ = embeds.shape
+    lanes = embeds.dim() == 4
+    if lanes and max_start is None:
+        raise ValueError("lanes need max_start, a host bound on the frontiers")
+    B = embeds.shape[-2]
     scale = cfg.head_dim ** -0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     if blk_mask is None:
         idx = torch.arange(B, device=embeds.device)
         blk_mask = idx[None, :] <= idx[:, None]  # [B, B]: row i attends rows j <= i
+    quant = isinstance(ctx_kv, QuantKVCache)
     hidden = embeds
     taps, ks, vs = {}, [], []
     for l in range(cfg.num_hidden_layers):
         p = _layer(params, l)
         q, k, v = _qkv(p, cfg, hidden, cos, sin)
-        quant = isinstance(ctx_kv, QuantKVCache)
-        attn = fused_ctx_block_attention(
-            q, ctx_kv.k[l], ctx_kv.k_scale[l] if quant else None,
-            ctx_kv.v[l], ctx_kv.v_scale[l] if quant else None, k, v, ctx_len, blk_mask, scale,
-        )
+        scales = (ctx_kv.k_scale[l], ctx_kv.v_scale[l]) if quant else (None, None)
+        if lanes:
+            attn = fused_ctx_block_attention_lanes(
+                q, ctx_kv.k[l], scales[0], ctx_kv.v[l], scales[1], k, v, ctx_len, max_start, blk_mask, scale)
+        else:
+            attn = fused_ctx_block_attention(
+                q, ctx_kv.k[l], scales[0], ctx_kv.v[l], scales[1], k, v, ctx_len, blk_mask, scale)
         hidden = _finish_layer(p, cfg, hidden, attn)
         if l in tap_ids:
             taps[l] = hidden

@@ -22,7 +22,7 @@ round, with the same cap of 16 rounds.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -43,10 +43,24 @@ _MAX_ROUNDS = 16
 
 
 def sample(
-    logits: torch.Tensor, temperature: float, generator: Optional[torch.Generator] = None
+    logits: torch.Tensor,
+    temperature: Union[float, Sequence[float]],
+    generator: Union[None, torch.Generator, Sequence[Optional[torch.Generator]]] = None,
 ) -> torch.Tensor:
-    """Token ids [...] (int64) from ``logits`` [..., V]."""
+    """Token ids [...] (int64) from ``logits`` [..., V].
+
+    Per lane: ``temperature`` a sequence of R host floats and ``generator``
+    one generator per lane (or one shared) for logits [R, ..., V]; lane r
+    samples its rows at its own temperature from its own generator, so its
+    draws do not depend on its neighbours (JAX's per-lane PRNG keys).  All
+    lanes greedy is one argmax over every lane."""
     logits = logits.float()
+    if not isinstance(temperature, (int, float)):
+        temps = [float(t) for t in temperature]
+        if all(t < GREEDY_TEMP_EPS for t in temps):
+            return logits.argmax(dim=-1)
+        gens = list(generator) if isinstance(generator, (list, tuple)) else [generator] * len(temps)
+        return torch.stack([sample(logits[r], t, g) for r, (t, g) in enumerate(zip(temps, gens))])
     if temperature < GREEDY_TEMP_EPS:
         return logits.argmax(dim=-1)
     return _draw(logits / max(temperature, GREEDY_TEMP_EPS), generator)
@@ -255,6 +269,7 @@ def sample_topk_topp(
 
 def acceptance_length(draft_tokens: torch.Tensor, posterior: torch.Tensor) -> torch.Tensor:
     """Longest accepted prefix length: ``draft_tokens`` [B, S-1] against
-    ``posterior`` [B, S]; ``(draft == posterior[:, :-1]).cumprod(1).sum(1)``."""
+    ``posterior`` [B, S]; ``(draft == posterior[:, :-1]).cumprod(1).sum(1)``.
+    Any leading axes (the batched engine's lanes [R, S-1] / [R, S] give [R])."""
     matches = (draft_tokens == posterior[..., :-1]).long()
     return torch.cumprod(matches, dim=-1).sum(dim=-1)

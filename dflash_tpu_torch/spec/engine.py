@@ -35,6 +35,14 @@ frontier-bounded ``verify_attention`` kernel (no separate commit); the draft
 stays on ``verify_fused``.  The default ``attn_impl="xla"`` is the two-part
 route above.
 
+The lane stages (``LaneState``, ``_prefill_lanes``, ``_draft_stage_lanes``,
+``_verify_stage_lanes``, ``_cycle``) run the same cycle for R requests at
+once, for ``spec/batched.py``: every lane's frontier, stop flag and cycle
+count live on the device, the commit, the output writes and the feature
+recycling are indexed writes over the lanes, and the one host read of a
+cycle refreshes their host mirrors.  The single-request engine keeps its own
+stages and launch counts.
+
 Not ported yet (they raise): ``attn_impl`` "fused" / "bucketed" /
 "xla_fullbuf", chunked / prefix prefill, meshes and sequence sharding.
 """
@@ -257,6 +265,186 @@ def _decode_impl(t_params, d_params, state: LoopState, max_length: int, temperat
 
 
 # ---------------------------------------------------------------------------
+# Lanes: R requests decoded together (spec/batched.py drives these)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LaneState:
+    """Decode state of R request lanes, the JAX ``LoopState`` with its lane
+    axis (``STATE_AXES``): leading on every tensor except the caches, where
+    it sits behind the layer axis.  ``start``, ``done`` and ``cycle_idx`` are
+    device tensors, as the kernels and the commit read them; the ``host_*``
+    arrays mirror them, refreshed by the one host read of each cycle, and give
+    the loop condition and the host bounds (``max_start``) of the kernels."""
+
+    output_ids: torch.Tensor  # [R, T] int64; committed prefix + mask_id tail
+    start: torch.Tensor  # [R] int32 frontiers
+    done: torch.Tensor  # [R] bool: a stop token was committed
+    cycle_idx: torch.Tensor  # [R] int32
+    acc_trace: torch.Tensor  # [R, max_cycles] int32: tau per cycle
+    generators: Optional[list]  # one torch.Generator per lane (sampled lanes), else None
+    t_kv: AnyKVCache  # [layers, R, T, ...]
+    d_kv: KVCache
+    features: torch.Tensor  # [R, T, n_taps * H]
+    host_start: np.ndarray  # [R] int64 mirrors
+    host_done: np.ndarray  # [R] bool
+    host_cycle_idx: np.ndarray  # [R] int64
+
+    def refresh(self) -> None:
+        """The cycle's one host read: every lane's frontier, stop flag and
+        cycle count."""
+        host = torch.stack([self.start, self.done.to(torch.int32), self.cycle_idx]).cpu().numpy()
+        self.host_start = host[0].astype(np.int64)
+        self.host_done = host[1] != 0
+        self.host_cycle_idx = host[2].astype(np.int64)
+
+
+def lane_temperatures(temperature, R: int) -> list:
+    """A scalar or R per-lane temperatures, as R host floats."""
+    t = np.broadcast_to(np.asarray(temperature, np.float32), (R,))
+    return [float(x) for x in t]
+
+
+def _prefill_lanes(t_params, d_params, input_ids: torch.Tensor, prompt_lens: np.ndarray, temps: list,
+                   generators, *, tcfg: ModelConfig, dcfg: DraftConfig, total_len: int, max_cycles: int,
+                   kv_quant: bool = False) -> LaneState:
+    """Target prefill of R prompts padded to one bucket ``input_ids`` [R, P]
+    (one forward), each lane's first token from its last prompt row, and the
+    draft context prefill (JAX's ``_prefill_impl`` vmapped over lanes)."""
+    R, P = input_ids.shape
+    device = input_ids.device
+    dtype = t_params["embed"].dtype
+    if kv_quant:
+        t_kv = init_quant_kv_cache(tcfg, R, total_len, device)
+    else:
+        t_kv = init_kv_cache(tcfg, R, total_len, dtype, device)
+    positions = torch.arange(P, device=device)[None, :]
+    res = qwen3.forward_prefill(t_params, tcfg, qwen3.embed(t_params, input_ids), positions,
+                                tap_ids=dcfg.target_layer_ids)
+    write_prompt_rows(t_kv, res.k, res.v)
+    lanes = torch.arange(R, device=device)
+    pl = torch.as_tensor(prompt_lens, dtype=torch.long).to(device)
+    last_hidden = res.hidden[lanes, pl - 1][:, None]  # [R, 1, H]
+    first = sample(qwen3.lm_head(t_params, last_hidden), temps, generators)  # [R, 1]
+
+    output_ids = torch.full((R, total_len), dcfg.mask_token_id, dtype=torch.long, device=device)
+    output_ids[:, :P] = torch.where(positions < pl[:, None], input_ids, dcfg.mask_token_id)
+    output_ids[lanes, pl] = first[:, 0]
+    features = torch.zeros((R, total_len, res.taps.shape[-1]), dtype=res.taps.dtype, device=device)
+    features[:, :P] = res.taps
+    d_kv = init_kv_cache(dcfg.model, R, total_len, dtype, device)
+    dflash_draft.append_ctx(d_params, dcfg, d_kv, res.taps, positions, 0)
+    return LaneState(
+        output_ids=output_ids, start=pl.to(torch.int32), done=torch.zeros(R, dtype=torch.bool, device=device),
+        cycle_idx=torch.zeros(R, dtype=torch.int32, device=device),
+        acc_trace=torch.zeros((R, max_cycles), dtype=torch.int32, device=device),
+        generators=generators, t_kv=t_kv, d_kv=d_kv, features=features,
+        host_start=np.asarray(prompt_lens, np.int64).copy(), host_done=np.zeros(R, bool),
+        host_cycle_idx=np.zeros(R, np.int64),
+    )
+
+
+class _Frontier(NamedTuple):
+    """Where a cycle works on each lane: the frontier clamped so that every
+    write of the cycle (B + 1 rows) stays in the buffer (only frozen lanes
+    are ever clamped), on the device and as its host bound."""
+
+    pos: torch.Tensor  # [R] int32
+    max_pos: int
+    block_idx: torch.Tensor  # [R, B] int64: positions pos .. pos + B - 1
+
+
+def _frontier(state: LaneState, active: np.ndarray, block_size: int) -> _Frontier:
+    T = state.output_ids.shape[1]
+    last = T - block_size - 1  # the commit writes B + 1 rows
+    if (state.host_start[active] > last).any():
+        raise ValueError(f"an active lane's frontier {int(state.host_start[active].max())} leaves no room for a "
+                         f"block in a buffer of {T} rows: size total_len for max_length + block + 1")
+    pos = state.start if state.host_start.max() <= last else torch.clamp(state.start, max=last)
+    idx = pos.to(torch.long)[:, None] + torch.arange(block_size, device=pos.device)
+    return _Frontier(pos, int(min(state.host_start.max(), last)), idx)
+
+
+def _draft_stage_lanes(state: LaneState, fr: _Frontier, t_params, d_params, *, dcfg: DraftConfig,
+                       block_size: int) -> torch.Tensor:
+    """Every lane's draft context append and the draft forward, each lane at
+    its own frontier, in one pass; returns the drafted blocks [R, B]."""
+    B = W = block_size
+    R, T = state.output_ids.shape
+    device = state.output_ids.device
+    block = state.output_ids.gather(1, fr.block_idx)  # [R, B]
+
+    # draft context append: the W-row window ending at each lane's frontier
+    w0 = torch.clamp(fr.pos - W, 0, T - W)
+    w_idx = w0.to(torch.long)[:, None] + torch.arange(W, device=device)
+    lanes = torch.arange(R, device=device)[:, None]
+    dflash_draft.append_ctx(d_params, dcfg, state.d_kv, state.features[lanes, w_idx], w_idx, w0,
+                            max_pos=min(max(fr.max_pos - W, 0), T - W))
+
+    d_hidden = dflash_draft.forward(d_params, dcfg, qwen3.embed(t_params, block), fr.block_idx, state.d_kv,
+                                    fr.pos, max_start=fr.max_pos)
+    draft_tokens = qwen3.lm_head(t_params, d_hidden[:, 1:]).argmax(dim=-1)
+    return torch.cat([block[:, :1], draft_tokens], dim=1)
+
+
+def _verify_stage_lanes(state: LaneState, fr: _Frontier, block: torch.Tensor, t_params, temps: list,
+                        active: torch.Tensor, *, tcfg: ModelConfig, dcfg: DraftConfig, block_size: int,
+                        stop_ids: Optional[torch.Tensor], forced_acc: Optional[torch.Tensor]) -> None:
+    """Every lane's verify in one target forward, acceptance, commit at its
+    frontier and feature recycling, all on the device.  Lanes not ``active``
+    keep their tokens, frontier, flags and trace (JAX's freeze select); their
+    caches and features advance harmlessly, as in JAX."""
+    B = block_size
+    R = block.shape[0]
+    device = block.device
+    res = qwen3.forward_block_candidates(
+        t_params, tcfg, qwen3.embed(t_params, block)[:, None], fr.block_idx[:, None], state.t_kv, fr.pos,
+        tap_ids=dcfg.target_layer_ids, max_start=fr.max_pos)
+    update_any(state.t_kv, res.blk_k[:, :, 0], res.blk_v[:, :, 0], fr.pos, fr.max_pos)
+    posterior = sample(qwen3.lm_head(t_params, res.hidden[:, 0]), temps, state.generators)  # [R, B]
+
+    acc = acceptance_length(block[:, 1:], posterior)  # [R]
+    # cycle indices clamp to the array, as JAX's gather and update clamp them
+    cyc = torch.clamp(state.cycle_idx, max=state.acc_trace.shape[1] - 1).to(torch.long)[:, None]
+    if forced_acc is not None:
+        # benchmark-only acceptance override, per lane at its own cycle
+        fcyc = torch.clamp(state.cycle_idx, max=forced_acc.shape[1] - 1).to(torch.long)[:, None]
+        f = forced_acc.gather(1, fcyc)[:, 0]
+        acc = torch.where(f >= 0, torch.clamp(f, max=B - 1), acc)
+    tau = acc + 1
+    j = torch.arange(B + 1, device=device)
+    commit = torch.cat([block, torch.full((R, 1), dcfg.mask_token_id, dtype=block.dtype, device=device)], 1)
+    commit = torch.where(j <= acc[:, None], commit, dcfg.mask_token_id)
+    commit = torch.where(j == tau[:, None], posterior.gather(1, acc[:, None]), commit)
+    rows = fr.block_idx[:, :1] + j
+    act = active[:, None]
+    state.output_ids.scatter_(1, rows, torch.where(act, commit, state.output_ids.gather(1, rows)))
+    lanes = torch.arange(R, device=device)[:, None]
+    state.features[lanes, fr.block_idx] = res.taps[:, 0]  # the next draft context
+
+    state.acc_trace.scatter_(1, cyc, torch.where(act, tau[:, None].to(torch.int32), state.acc_trace.gather(1, cyc)))
+    state.start = torch.where(active, state.start + tau.to(torch.int32), state.start)
+    state.cycle_idx = torch.where(active, state.cycle_idx + 1, state.cycle_idx)
+    if stop_ids is not None:
+        hit = (torch.isin(commit, stop_ids) & (j <= tau[:, None])).any(dim=1)
+        state.done = state.done | (active & hit)
+
+
+def _cycle(state: LaneState, t_params, d_params, temps: list, active: torch.Tensor, host_active: np.ndarray, *,
+           tcfg: ModelConfig, dcfg: DraftConfig, block_size: int, stop_ids: Optional[torch.Tensor],
+           forced_acc: Optional[torch.Tensor] = None) -> LaneState:
+    """One draft -> verify -> accept cycle of every lane (JAX's ``_cycle``
+    under the batched engine's vmap) and its one host read.  ``active`` [R]
+    (device) and ``host_active``: the lanes whose small state advances."""
+    fr = _frontier(state, host_active, block_size)
+    block = _draft_stage_lanes(state, fr, t_params, d_params, dcfg=dcfg, block_size=block_size)
+    _verify_stage_lanes(state, fr, block, t_params, temps, active, tcfg=tcfg, dcfg=dcfg,
+                        block_size=block_size, stop_ids=stop_ids, forced_acc=forced_acc)
+    state.refresh()
+    return state
+
+
+# ---------------------------------------------------------------------------
 # Autoregressive baseline: one target token per step, the correctness oracle.
 # ---------------------------------------------------------------------------
 
@@ -311,6 +499,21 @@ def _ar_decode(t_params, state: ARState, max_length: int, temperature: float, *,
 # ---------------------------------------------------------------------------
 # Host-level engine
 # ---------------------------------------------------------------------------
+
+def trim_output(output_ids: np.ndarray, prompt_len: int, max_new_tokens: int, mask_token_id: int,
+                stop_token_ids: Sequence[int] = ()) -> np.ndarray:
+    """One sequence's token buffer [T] as the user sees it, [1, L]: cut at
+    prompt_len + max_new_tokens, mask tokens stripped from the generated
+    region, truncated after the first stop token."""
+    seq = output_ids[:prompt_len + max_new_tokens]
+    gen = seq[prompt_len:]
+    gen = gen[gen != mask_token_id]
+    if stop_token_ids:
+        hits = np.nonzero(np.isin(gen, list(stop_token_ids)))[0]
+        if hits.size > 0:
+            gen = gen[: hits[0] + 1]
+    return np.concatenate([seq[:prompt_len], gen])[None, :]
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -395,17 +598,8 @@ class SpecEngine:
         return torch.from_numpy(padded).to(self.device), prompt_len, P
 
     def _trim(self, output_ids: np.ndarray, prompt_len: int) -> np.ndarray:
-        """Cut at max_length, strip mask tokens from the generated region,
-        truncate at the first stop token."""
-        max_length = prompt_len + self.max_new_tokens
-        seq = output_ids[0, :max_length]
-        gen = seq[prompt_len:]
-        gen = gen[gen != self.dcfg.mask_token_id]
-        if self.stop_token_ids:
-            hits = np.nonzero(np.isin(gen, list(self.stop_token_ids)))[0]
-            if hits.size > 0:
-                gen = gen[: hits[0] + 1]
-        return np.concatenate([seq[:prompt_len], gen])[None, :]
+        return trim_output(output_ids[0], prompt_len, self.max_new_tokens, self.dcfg.mask_token_id,
+                           self.stop_token_ids)
 
     @staticmethod
     def _filters(top_k: int, top_p: float) -> Optional[SamplingFilters]:

@@ -17,7 +17,12 @@ verify_fused (float ctx and int8 ctx), prefill_flash and verify_attention;
 matmul_int8 (``matmul_<x dtype>_<S>_<K>x<N>``, f32 out) for f32 and
 bf16 x, S in {1, 16, 640}, at Qwen3-8B's wq, wk and gate shapes; and
 filter_stats (``filter_stats_<N>_<T>_<output>``) on f32 logits [N, 151,936],
-N in {1, 16}, T in {16, 32}.  Each group draws its inputs from a generator of
+N in {1, 16}, T in {16, 32}.  Lane entries (``verify_lanes_*``,
+``verify_int8_lanes_*``: 4 lanes with frontiers 0, 65, 700 and 769;
+``prefill_lanes_*``: 3 lanes of 640 rows) where the checkout's kernels have
+a lane axis; a checkout without one saves none, and ``compare`` lists entries
+found on one side only without failing, unless A has an entry B lacks.
+Each group draws its inputs from a generator of
 its own, so adding a group leaves the earlier entries' inputs as they were.
 """
 
@@ -73,6 +78,23 @@ def outputs() -> dict:
             names = ("count_ge", "count_gt", "mass_gt", "lse", "row_min")
             for name, out in zip(names, filter_stats.filter_stats(x, thr)):
                 res[f"filter_stats_{N}_{T}_{name}"] = out.cpu()
+    if hasattr(verify_fused, "fused_ctx_block_attention_lanes"):  # the lane entries, where the kernels have them
+        g = torch.Generator(device="cuda").manual_seed(3)
+        starts_h = [0, 65, 700, 769]
+        starts = torch.tensor(starts_h, dtype=torch.int32, device="cuda")
+        L, B, T = len(starts_h), 16, 785
+        mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+        for dtype in (torch.bfloat16, torch.float32):
+            randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+            q, bk, bv = randn(L, 1, B, 32, 128), randn(L, 1, B, 8, 128), randn(L, 1, B, 8, 128)
+            ck, cv = randn(L, T, 8, 128), randn(L, T, 8, 128)
+            res[f"verify_lanes_{dtype}_{L}"] = verify_fused.fused_ctx_block_attention_lanes(
+                q, ck, None, cv, None, bk, bv, starts, max(starts_h), mask, 128 ** -0.5).cpu()
+            (kq, ks), (vq, vs) = quantize_rows(ck), quantize_rows(cv)
+            res[f"verify_int8_lanes_{dtype}_{L}"] = verify_fused.fused_ctx_block_attention_lanes(
+                q, kq, ks, vq, vs, bk, bv, starts, max(starts_h), mask, 128 ** -0.5).cpu()
+            q, k, v = randn(3, 640, 32, 128), randn(3, 640, 8, 128), randn(3, 640, 8, 128)
+            res[f"prefill_lanes_{dtype}_3_640"] = prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5).cpu()
     return res
 
 
@@ -86,11 +108,13 @@ def main() -> int:
         return 0
     a, b = torch.load(sys.argv[2]), torch.load(sys.argv[3])
     may_differ = tuple(sys.argv[4:])
-    assert a.keys() == b.keys(), (sorted(a), sorted(b))
-    same = {k: torch.equal(a[k], b[k]) for k in a}
+    missing = sorted(set(a) - set(b))  # an entry of A that B lost fails the check
+    same = {k: torch.equal(a[k], b[k]) for k in a if k in b}
     held = {k: v for k, v in same.items() if not (may_differ and k.startswith(may_differ))}
-    print({"bitwise_equal": same, "may_differ": list(may_differ), "held_equal": all(held.values())})
-    return 0 if all(held.values()) else 2
+    ok = all(held.values()) and not missing
+    print({"bitwise_equal": same, "may_differ": list(may_differ), "only_in_a": missing,
+           "only_in_b": sorted(set(b) - set(a)), "held_equal": ok})
+    return 0 if ok else 2
 
 
 if __name__ == "__main__":

@@ -223,6 +223,136 @@ def test_verify_fused_cpu_tensors_take_plain(int8):
 # On the card: each CUDA kernel against its plain version.
 # ---------------------------------------------------------------------------
 
+
+# ---------------------------------------------------------------------------
+# lanes: the kernels' lane axis (the Pallas kernels' _fused_lanes /
+# _flash_lanes grid dimension, reached through jax.vmap)
+# ---------------------------------------------------------------------------
+
+_LANE_STARTS = (0, 3, 130, 256)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_plain_lanes_match_pallas_vmap(int8):
+    """The lane form of verify_fused's plain version against JAX's kernel
+    vmapped over lanes (its custom_vmap rule folds them into the grid), one
+    frontier per lane, on the shapes of tests/test_verify_fused.py."""
+    import jax
+    import jax.numpy as jnp
+    from dflash_tpu.kernels.verify_fused import fused_ctx_block_attention as j_verify
+
+    rng = np.random.default_rng(3)
+    L, B, nh, nkv, d, T = len(_LANE_STARTS), 16, 32, 8, 128, 256
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, bk, bv = f(L, 1, B, nh, d), f(L, 1, B, nkv, d), f(L, 1, B, nkv, d)
+    if int8:
+        ck = rng.integers(-127, 127, (L, T, nkv, d)).astype(np.int8)
+        cv = rng.integers(-127, 127, (L, T, nkv, d)).astype(np.int8)
+        ks = (rng.random((L, T, nkv)) * 0.02 + 0.001).astype(np.float32)
+        vs = (rng.random((L, T, nkv)) * 0.02 + 0.001).astype(np.float32)
+    else:
+        ck, cv, ks, vs = f(L, T, nkv, d), f(L, T, nkv, d), None, None
+    starts = np.asarray(_LANE_STARTS, np.int32)
+    causal = np.tril(np.ones((B, B), bool))
+    scale = d ** -0.5
+    j = lambda a: None if a is None else jnp.asarray(a[:, None])  # noqa: E731  [L, 1, ...] per-lane ctx
+
+    def one(q_, ck_, ks_, cv_, vs_, bk_, bv_, s_):
+        return j_verify(q_, ck_, ks_, cv_, vs_, bk_, bv_, s_, jnp.asarray(causal), scale, interpret=True)
+
+    ref = jax.vmap(one)(jnp.asarray(q), j(ck), j(ks), j(cv), j(vs), jnp.asarray(bk), jnp.asarray(bv),
+                        jnp.asarray(starts))
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    port = verify_fused.plain_lanes(t(q), t(ck), t(cv), t(bk), t(bv), torch.from_numpy(starts),
+                                    torch.from_numpy(causal), scale, t(ks), t(vs))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    # the lane entry takes the plain version for CPU tensors, without counting a launch
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(verify_fused.fused_ctx_block_attention, counter)
+    wrapped = verify_fused.fused_ctx_block_attention_lanes(
+        t(q), t(ck), t(ks), t(cv), t(vs), t(bk), t(bv), torch.from_numpy(starts), T,
+        torch.from_numpy(causal), scale)
+    assert torch.equal(wrapped, port)
+    assert getattr(verify_fused.fused_ctx_block_attention, counter) == before
+
+
+def test_verify_lanes_equal_single_calls_on_cpu():
+    """Lane l of the lane entry is the single-request entry on lane l's
+    inputs, bit for bit; starts None means max_start in every lane."""
+    rng = np.random.default_rng(5)
+    L, C, B, T = 3, 1, 8, 40
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    q, bk, bv, ck, cv = f(L, C, B, 4, 16), f(L, C, B, 2, 16), f(L, C, B, 2, 16), f(L, T, 2, 16), f(L, T, 2, 16)
+    mask = torch.tril(torch.ones(B, B, dtype=torch.bool))
+    starts = torch.tensor([0, 17, 40], dtype=torch.int32)
+    lanes = verify_fused.fused_ctx_block_attention_lanes(q, ck, None, cv, None, bk, bv, starts, 40, mask, 0.25)
+    same = verify_fused.fused_ctx_block_attention_lanes(q, ck, None, cv, None, bk, bv, None, 17, mask, 0.25)
+    for l in range(L):
+        one = verify_fused.fused_ctx_block_attention(
+            q[l], ck[l:l + 1], None, cv[l:l + 1], None, bk[l], bv[l], int(starts[l]), mask, 0.25)
+        assert torch.equal(lanes[l], one)
+        assert torch.equal(same[l], verify_fused.fused_ctx_block_attention(
+            q[l], ck[l:l + 1], None, cv[l:l + 1], None, bk[l], bv[l], 17, mask, 0.25))
+
+
+def test_prefill_plain_lanes_match_pallas_vmap():
+    """prefill_flash's plain version with a lane axis against JAX's kernel
+    vmapped over lanes (S 128, d 128)."""
+    import jax
+    import jax.numpy as jnp
+    from dflash_tpu.kernels.prefill_flash import flash_prefill_attention as j_prefill
+
+    rng = np.random.default_rng(1)
+    L, S = 3, 128
+    q = rng.standard_normal((L, S, 32, 128)).astype(np.float32)
+    k = rng.standard_normal((L, S, 8, 128)).astype(np.float32)
+    v = rng.standard_normal((L, S, 8, 128)).astype(np.float32)
+    scale = 128 ** -0.5
+    ref = jax.vmap(lambda a, b, c: j_prefill(a[None], b[None], c[None], scale, interpret=True)[0])(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    port = prefill_flash.flash_prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                                 torch.from_numpy(v), scale)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=5e-5, rtol=0)
+    for l in range(L):  # a lane's rows are the single-lane call's
+        one = prefill_flash.plain(torch.from_numpy(q[l:l + 1]), torch.from_numpy(k[l:l + 1]),
+                                  torch.from_numpy(v[l:l + 1]), scale)
+        np.testing.assert_allclose(port[l].numpy(), one[0].numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("L,R,max_start", [(1, 16, 700), (4, 16, 700), (8, 16, 700), (16, 16, 700),
+                                           (8, 1, 700), (3, 16, 0), (8, 16, 4000), (2, 32, 77)])
+def test_verify_fused_split_policy_lanes(L, R, max_start):
+    """With L lanes the ctx splits are sized for max_start and keep about one
+    wave of SM_COUNT blocks over all lanes; L = 1 is the single-request
+    policy; the workspace holds every lane's partials."""
+    nh, n_kv, d = 32, 8, 128
+    tiles = verify_fused.split_tiles(R, nh, n_kv, max_start, L)
+    n_tiles = -(-max_start // attention.KEY_TILE)
+    n_ctx_splits = -(-n_tiles // tiles)
+    units = L * n_kv * -(-(nh // n_kv * R) // 64)
+    budget = max(1, attention.SM_COUNT - units)
+    assert verify_fused.n_splits(R, nh, n_kv, max_start, L) == n_ctx_splits + 1
+    assert tiles >= 1 and n_ctx_splits * units < budget + units
+    if tiles > 1:  # one tile fewer per split would overfill the wave
+        assert n_tiles * units > (tiles - 1) * budget
+    if L == 1:
+        assert tiles == verify_fused.split_tiles(R, nh, n_kv, max_start)
+    ws = verify_fused.workspace_floats(R, nh, n_kv, max_start, d, L)
+    assert ws == (0 if max_start == 0 else L * (n_ctx_splits + 1) * nh * R * (d + 2))
+
+
+def test_lane_wrappers_raise_on_a_device_without_a_kernel():
+    q = torch.empty(2, 1, 16, 4, 64, device="meta")
+    kv = torch.empty(2, 16, 2, 64, device="meta")
+    blk = torch.empty(2, 1, 16, 2, 64, device="meta")
+    starts = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        verify_fused.fused_ctx_block_attention_lanes(
+            q, kv, None, kv, None, blk, blk, starts, 4, torch.ones(16, 16, dtype=torch.bool), 0.125)
+    with pytest.raises(ValueError):
+        prefill_flash.flash_prefill_attention(q[:, 0], kv, kv, 0.125)
+
+
 def _tol(dtype):
     return dict(atol=5e-5, rtol=0) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
 
@@ -505,3 +635,108 @@ def test_cuda_bf16_attention_is_deterministic():
     q, k, v = randn(1, 640, 32, 128), randn(1, 640, 8, 128), randn(1, 640, 8, 128)
     assert torch.equal(prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5),
                        prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5))
+
+
+def _lane_cases(B: int) -> list:
+    """(T, frontiers) of lane calls: L = 1 at none, one row, both sides of
+    the bf16 kernel's first split boundary (64), the main path's 700 and a
+    full cache; L = 3 and 8 with those mixed across lanes; and L = 8 over a
+    4096-row cache with lanes on both sides of a split boundary of a long
+    ctx (several tiles a split), a lane at 0 and one at the bound."""
+    cases = [(785, [s]) for s in (0, 1, 63, 64, 65, 700, 785 - B)]
+    cases += [(785, [0, 64, 785 - B]), (785, [1, 65, 700]), (785, [63, 63, 63])]
+    cases += [(785, [0, 1, 63, 64, 65, 700, 785 - B, 785 - B])]
+    span = attention.KEY_TILE * verify_fused.split_tiles(B, 32, 8, 4096 - B, 8)
+    e = (4096 - B - 1) // span * span
+    cases += [(4096, [e - 1, e, e + 1, 0, 4096 - B, 1, 2000, e - span])]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_verify_fused_lanes_match_plain(dtype, int8):
+    """The lane entry: L in {1, 3, 8} lanes with their own frontiers on the
+    device (_lane_cases), B 16 (causal) and 1, against the lane plain version; one launch
+    counted per call; NaN past every lane's frontier leaves the bits; f32
+    lane rows equal an L = 1 call on that lane's inputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    counter = "launches_int8" if int8 else "launches"
+    scale = 128 ** -0.5
+    for B in (16, 1):
+        for T, starts_h in _lane_cases(B):
+            L = len(starts_h)
+            starts = torch.tensor(starts_h, dtype=torch.int32, device="cuda")
+            q, bk, bv = randn(L, 1, B, 32, 128), randn(L, 1, B, 8, 128), randn(L, 1, B, 8, 128)
+            ck, cv, ks, vs = randn(L, T, 8, 128), randn(L, T, 8, 128), None, None
+            if int8:
+                (ck, ks), (cv, vs) = quantize_rows(ck), quantize_rows(cv)
+            mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+            case = f"L {L} B {B} starts {starts_h}"
+            before = getattr(verify_fused.fused_ctx_block_attention, counter)
+            out = verify_fused.fused_ctx_block_attention_lanes(
+                q, ck, ks, cv, vs, bk, bv, starts, max(starts_h), mask, scale)
+            assert getattr(verify_fused.fused_ctx_block_attention, counter) == before + 1
+            ref = verify_fused.plain_lanes(q, ck, cv, bk, bv, starts, mask, scale, ks, vs)
+            torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype), msg=case)
+            if dtype == torch.float32:
+                for l in range(L):
+                    sc = (None, None) if ks is None else (ks[l:l + 1], vs[l:l + 1])
+                    one = verify_fused.fused_ctx_block_attention(
+                        q[l], ck[l:l + 1], sc[0], cv[l:l + 1], sc[1], bk[l], bv[l], starts_h[l], mask, scale)
+                    assert torch.equal(out[l], one), (case, l)
+            for l, s in enumerate(starts_h):  # past each lane's frontier: never read
+                if int8:
+                    ks[l, s:], vs[l, s:] = float("nan"), float("nan")
+                else:
+                    ck[l, s:], cv[l, s:] = float("nan"), float("nan")
+            dirty = verify_fused.fused_ctx_block_attention_lanes(
+                q, ck, ks, cv, vs, bk, bv, starts, max(starts_h), mask, scale)
+            assert bool(torch.isfinite(dirty).all()) and torch.equal(dirty, out), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_prefill_lanes_equal_single_lane_calls(dtype):
+    """prefill_flash with L lanes: each lane's rows equal an L = 1 call on
+    them bit for bit (the bf16 kernel has no split), and match the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    for L, S in ((1, 130), (3, 130), (4, 640)):
+        q, k, v = randn(L, S, 32, 128), randn(L, S, 8, 128), randn(L, S, 8, 128)
+        before = prefill_flash.flash_prefill_attention.launches
+        out = prefill_flash.flash_prefill_attention(q, k, v, 128 ** -0.5)
+        assert prefill_flash.flash_prefill_attention.launches == before + 1
+        torch.testing.assert_close(out.float(), prefill_flash.plain(q, k, v, 128 ** -0.5).float(), **_tol(dtype))
+        for l in range(L):
+            one = prefill_flash.flash_prefill_attention(q[l:l + 1], k[l:l + 1], v[l:l + 1], 128 ** -0.5)
+            assert torch.equal(out[l], one[0]), (L, S, l)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_lanes_are_deterministic():
+    """bf16 lane calls give the same bits twice (bf16 and int8 ctx)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    B = 16
+    T, starts_h = _lane_cases(B)[-1]
+    L = len(starts_h)
+    starts = torch.tensor(starts_h, dtype=torch.int32, device="cuda")
+    q, bk, bv = randn(L, 1, B, 32, 128), randn(L, 1, B, 8, 128), randn(L, 1, B, 8, 128)
+    k, v = randn(L, T, 8, 128), randn(L, T, 8, 128)
+    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+    mask = torch.tril(torch.ones(B, B, dtype=torch.bool, device="cuda"))
+    for ctx in ((k, None, v, None), (kq, ks, vq, vs)):
+        run = lambda: verify_fused.fused_ctx_block_attention_lanes(  # noqa: E731
+            q, ctx[0], ctx[1], ctx[2], ctx[3], bk, bv, starts, T - 16, mask, 128 ** -0.5)
+        assert torch.equal(run(), run())

@@ -119,3 +119,91 @@ def test_draft_append_ctx_and_forward(name):
     _close(port, ref)
     # the draft's logits through the target lm_head, as the engine takes them
     _close(tqwen3.lm_head(ttp, port), jqwen3.lm_head(jtp, ref))
+
+
+# ---------------------------------------------------------------------------
+# lanes: the batched engine's forms (R requests, each at its own frontier)
+# ---------------------------------------------------------------------------
+
+LANE_STARTS = (0, 100, 240)  # one frontier per lane
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_forward_prefill_lanes(name):
+    """R = 3 prompts of one bucket in one forward: each lane's hidden states,
+    taps and K/V equal JAX's forward_prefill on that lane alone."""
+    jt, _, jtp, _, tt, _, ttp, _ = _models(name)
+    R, S = len(LANE_STARTS), 128
+    ids = np.random.default_rng(3).integers(1, jt.vocab_size - 2, (R, S))
+    pos = np.arange(S)[None, :]
+    port = tqwen3.forward_prefill(ttp, tt, tqwen3.embed(ttp, torch.from_numpy(ids)), torch.from_numpy(pos),
+                                  tap_ids=(1, 0))
+    for r in range(R):
+        ref = jqwen3.forward_prefill(
+            jtp, jt, jqwen3.embed(jtp, jnp.asarray(ids[r:r + 1])), jnp.asarray(pos), tap_ids=(1, 0),
+            attn_impl="flash" if jt.head_dim == 128 else "xla")
+        for field in ("hidden", "taps"):
+            _close(getattr(port, field)[r:r + 1], getattr(ref, field))
+        for field in ("k", "v"):
+            _close(getattr(port, field)[:, r:r + 1], getattr(ref, field))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_forward_block_candidates_lanes(name):
+    """R = 3 lanes, each over its own cache lane [layers, R, T, ...] below its
+    own frontier (an int32 tensor): embeds [R, C, B, H] give hidden / taps
+    [R, C, B, ...] and block K/V [L, R, C, B, ...], each lane equal to JAX's
+    forward_block_candidates on that lane's cache and frontier."""
+    jt, _, jtp, _, tt, _, ttp, _ = _models(name)
+    rng = np.random.default_rng(4)
+    R, T, B = len(LANE_STARTS), 256, 16
+    L, nkv, d, H = jt.num_hidden_layers, jt.num_key_value_heads, jt.head_dim, jt.hidden_size
+    ck, cv = _rand(rng, L, R, T, nkv, d), _rand(rng, L, R, T, nkv, d)
+    emb = _rand(rng, R, 1, B, H)
+    starts = np.asarray(LANE_STARTS, np.int32)
+    pos = starts[:, None, None] + np.arange(B)
+    port = tqwen3.forward_block_candidates(
+        ttp, tt, torch.from_numpy(emb), torch.from_numpy(pos), TKVCache(torch.from_numpy(ck), torch.from_numpy(cv)),
+        torch.from_numpy(starts), tap_ids=(0,), max_start=int(starts.max()))
+    assert port.blk_k.shape == (L, R, 1, B, nkv, d)
+    for r, s in enumerate(LANE_STARTS):
+        ref = jqwen3.forward_block_candidates(
+            jtp, jt, jnp.asarray(emb[r]), jnp.asarray(pos[r]),
+            JKVCache(jnp.asarray(ck[:, r:r + 1]), jnp.asarray(cv[:, r:r + 1])), jnp.int32(s), tap_ids=(0,),
+            attn_impl="fused" if d == 128 else "xla")
+        for field in ("hidden", "taps"):
+            _close(getattr(port, field)[r], getattr(ref, field))
+        for field in ("blk_k", "blk_v"):
+            _close(getattr(port, field)[:, r], getattr(ref, field))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_draft_lanes(name):
+    """The draft with R = 3 lanes: append_ctx writes each lane's window at its
+    own position (a [R] tensor), and forward attends each lane's ctx below
+    its own frontier; each lane equal to JAX's on that lane alone."""
+    jt, jd, jtp, jdp, tt, td, ttp, tdp = _models(name)
+    rng = np.random.default_rng(5)
+    R, T, S, B = len(LANE_STARTS), 256, 16, 16
+    m = td.model
+    shape = (m.num_hidden_layers, R, T, m.num_key_value_heads, m.head_dim)
+    base = _rand(rng, *shape), _rand(rng, *shape)
+    feats = _rand(rng, R, S, td.num_taps * m.hidden_size)
+    w0 = np.maximum(np.asarray(LANE_STARTS) - S, 0).astype(np.int32)  # the window ending at each frontier
+    wpos = w0[:, None] + np.arange(S)
+    tcache = tdraft.append_ctx(tdp, td, TKVCache(*(torch.from_numpy(a.copy()) for a in base)),
+                               torch.from_numpy(feats), torch.from_numpy(wpos), torch.from_numpy(w0),
+                               max_pos=int(w0.max()))
+    noise = _rand(rng, R, B, m.hidden_size)
+    starts = np.asarray(LANE_STARTS, np.int32)
+    bpos = starts[:, None] + np.arange(B)
+    port = tdraft.forward(tdp, td, torch.from_numpy(noise), torch.from_numpy(bpos), tcache,
+                          torch.from_numpy(starts), max_start=int(starts.max()))
+    for r, s in enumerate(LANE_STARTS):
+        jcache = jdraft.append_ctx(
+            jdp, jd, JKVCache(jnp.asarray(base[0][:, r:r + 1]), jnp.asarray(base[1][:, r:r + 1])),
+            jnp.asarray(feats[r:r + 1]), jnp.asarray(wpos[r:r + 1]), jnp.int32(w0[r]))
+        _close(tcache.k[:, r:r + 1], jcache.k)
+        _close(tcache.v[:, r:r + 1], jcache.v)
+        ref = jdraft.forward(jdp, jd, jnp.asarray(noise[r:r + 1]), jnp.asarray(bpos[r:r + 1]), jcache, jnp.int32(s))
+        _close(port[r:r + 1], ref)

@@ -138,3 +138,55 @@ def test_acceptance_length():
     port = tsampling.acceptance_length(torch.from_numpy(draft), torch.from_numpy(post))
     ref = jsampling.acceptance_length(jnp.asarray(draft), jnp.asarray(post))
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+def test_rope_lane_positions():
+    """The batched engine's positions [R, C, B]: each lane's block at its own
+    frontier; rope_cos_sin broadcasts them and apply_rope rotates
+    [R, C, B, heads, d], as JAX's functions do."""
+    rng = np.random.default_rng(11)
+    d, R, B = 128, 3, 16
+    positions = (np.asarray([0, 700, 4077])[:, None, None] + np.arange(B)).astype(np.int64)  # [R, 1, B]
+    x = _f32(rng, R, 1, B, 4, d)
+    jc, js = jrope.rope_cos_sin(jnp.asarray(positions), d, 1_000_000.0)
+    tc, ts = trope.rope_cos_sin(torch.from_numpy(positions), d, 1_000_000.0)
+    assert tc.shape == (R, 1, B, d)
+    _close(tc, jc)
+    _close(ts, js)
+    _close(trope.apply_rope(torch.from_numpy(x), tc, ts), jrope.apply_rope(jnp.asarray(x), jc, js))
+
+
+def test_sample_per_lane_temperatures_and_generators():
+    """Per-lane sampling: R host temperatures and one generator per lane.
+    Greedy lanes take the argmax; a sampled lane's tokens are what a
+    one-lane call with the same generator state draws, whatever its
+    neighbours; all lanes greedy is one argmax."""
+    logits = torch.from_numpy(_f32(np.random.default_rng(12), 3, 16, 64)) * 3
+    gens = lambda: [torch.Generator().manual_seed(s) for s in (1, 2, 3)]  # noqa: E731
+    mixed = tsampling.sample(logits, [0.0, 0.9, 1.3], gens())
+    np.testing.assert_array_equal(mixed[0].numpy(), logits[0].argmax(-1).numpy())
+    for r, (t, seed) in enumerate(((0.9, 2), (1.3, 3)), start=1):
+        alone = tsampling.sample(logits[r], t, torch.Generator().manual_seed(seed))
+        np.testing.assert_array_equal(mixed[r].numpy(), alone.numpy())
+    other = logits.clone()
+    other[0] = -other[0]  # a different neighbour leaves lane 1's draws as they were
+    np.testing.assert_array_equal(tsampling.sample(other, [0.5, 0.9, 1.3], gens())[1].numpy(), mixed[1].numpy())
+    np.testing.assert_array_equal(tsampling.sample(logits, [0.0, 0.0, 0.0], None).numpy(),
+                                  logits.argmax(-1).numpy())
+
+
+def test_acceptance_length_per_lane():
+    """acceptance_length on the batched engine's [R, B] blocks: lane r's
+    value is the one-lane call's, and JAX's under vmap."""
+    import jax
+
+    rng = np.random.default_rng(13)
+    post = rng.integers(0, 2, size=(5, 16))
+    draft = np.where(rng.random((5, 15)) < 0.9, post[:, :-1], 1 - post[:, :-1])
+    port = tsampling.acceptance_length(torch.from_numpy(draft), torch.from_numpy(post))
+    ref = jax.vmap(lambda a, b: jsampling.acceptance_length(a[None], b[None])[0])(jnp.asarray(draft),
+                                                                                  jnp.asarray(post))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+    for r in range(5):
+        assert int(port[r]) == int(tsampling.acceptance_length(torch.from_numpy(draft[r:r + 1]),
+                                                               torch.from_numpy(post[r:r + 1]))[0])
