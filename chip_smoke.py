@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Five paths are driven: the bf16/f32 path (float weights and KV cache), the
+Six paths are driven: the bf16/f32 path (float weights and KV cache), the
 int8 serving path (int8 weights from quantize_target_params /
 quantize_draft_params, and kv_quant=True), the attn_impl="pallas" path
 (verify and AR step through qwen3.forward and the frontier-bounded
 verify_attention kernel), filtered sampling (generate(top_k, top_p),
-whose exact keep set comes from the filter_stats kernel) and the batched
+whose exact keep set comes from the filter_stats kernel), the batched
 engine (spec/batched.py: R request lanes in one forward per cycle, the
 attention kernels' lane entries with per-lane frontiers on the card), on the
-float and the int8 path.
+float and the int8 path, and the serving entry point (engine/batching.py's
+continuous batching engine behind engine/server.py's HTTP server, with
+per-lane top-k / top-p).
 
 Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
@@ -65,7 +67,16 @@ Phases, each fatal on failure (nothing is caught):
      A and a 530-token C): lanes 0 and 2 identical, lanes 0 and 1 phase 4's
      tokens, lane 3 generate's on C, and one request's launch counts per
      cycle (verify_fused 37) and per prefill (prefill_flash 36) whatever R;
-     4f: the same on the int8 path against phase 4b's tokens.
+     4f: the same on the int8 path against phase 4b's tokens; 4g: the serving
+     engine on phase 4's weights (ContinuousBatchingEngine, 4 lanes, 64 new
+     tokens, sampling_filters) with six requests A, B, A, C, B (32 new
+     tokens) and A at temperature 2 / top_k 2 / top_p 1e-6 (its keep set is
+     the argmax): each equals its single-request tokens (the 32-token B
+     their prefix), with verify_fused 37 launches per cycle run,
+     prefill_flash 36 per admission and filter_stats 1 per sampling call of
+     the filtered request (1 + its cycles); then two /generate bodies (one
+     streamed) through EngineHTTPServer on 127.0.0.1 give A's tokens; and
+     after 4f one A request through an int8 engine (kv_quant) gives 4b's.
   5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
      draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
      agreement length (printed, not asserted: bf16 greedy can flip on ties).
@@ -74,7 +85,15 @@ Phases, each fatal on failure (nothing is caught):
      the default path; 5e: the batched engine at R in {1, 4, 8, 16} lanes,
      128 new tokens each, at the random draft's tau and the forced 7.46: tok/s
      summed over the lanes, the batched prefill's TTFT, launches per cycle;
-     5b: the int8 path.
+     5f: the serving engine (16 lanes, 128 new tokens, steps_per_sync 4)
+     behind the HTTP server, driven by bench/serving.py's client at
+     concurrency 1, 4 and 16 with 2 x concurrency distinct random 600-token
+     prompts, at the random draft's tau and the emulated 7.46: tok/s, mean
+     accept length, mean end-to-end latency (timed, not gated);
+     5b: the int8 path; 5g: the server's own entry point, `python -m
+     dflash_tpu_torch.engine.server --model-name-or-path qwen3-8b
+     --num-lanes 8`, in a child process that answers one /generate and is
+     then stopped.
 The last lines are the card's name and power limit, the kernels' JSON
 summary and the device JSON.  Exits non-zero, printing no result, without
 CUDA.
@@ -86,6 +105,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import select
 import subprocess
 import sys
 import time
@@ -96,8 +117,12 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from dflash_tpu_torch.bench import serving
+from dflash_tpu_torch.bench.tokenizer import SyntheticTokenizer
 from dflash_tpu_torch.cache.kv import quantize_rows
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
+from dflash_tpu_torch.engine import ContinuousBatchingEngine, EngineConfig
+from dflash_tpu_torch.engine.server import EngineHTTPServer
 from dflash_tpu_torch.kernels import _build, attention, filter_stats, matmul_q, prefill_flash, verify_fused
 from dflash_tpu_torch.models import dflash_draft, qwen3
 from dflash_tpu_torch.ops import sampling
@@ -142,6 +167,9 @@ FILTERED = dict(temperature=0.8, top_k=50, top_p=0.95)
 # phase 5e
 LANE_STARTS = (0, 1, 63, 64, 65, 700)
 LANES_TIMED = (1, 4, 8, 16)
+C_LEN = 530  # the shorter prompt of phases 4e-4g
+# phase 5f: the serving engine's lanes and the client concurrencies
+SERVE_LANES, SERVE_CONCURRENCY = 16, (1, 4, 16)
 
 
 def log(msg: str) -> None:
@@ -818,19 +846,23 @@ def lanes_expected(int8: bool, cycles: int, Ld: int) -> dict:
     return expected
 
 
-def batched_parity_phase(engine: SpecEngine, single: list, tag: str) -> dict:
+def c_prompt() -> np.ndarray:
+    return np.random.default_rng(2).integers(1, QWEN3_8B.vocab_size - 2, size=C_LEN)
+
+
+def batched_parity_phase(engine: SpecEngine, single: list, tag: str) -> np.ndarray:
     """Phases 4e / 4f: f32, R = 4 lanes with prompts A, B, A and C (C: 530
     tokens, so the frontiers differ), batched_prefill + batched_decode on the
     engine's weights: lanes 0 and 2 identical, lanes 0 and 1 equal to the
     single-request tokens ``single`` for A and B (phase 4 / 4b), lane 3 equal
     to the engine's generate on C; launch counts exact (one request's per
-    cycle, whatever R)."""
+    cycle, whatever R).  Returns generate's tokens on C."""
     int8 = engine.kv_quant
     log(f"{tag} f32 batched engine, R = 4 lanes (prompts A, B, A, C), {path_name(int8)}")
     ids, lens = lane_prompts(3)
     ids = np.concatenate([ids[:2], ids[:1], np.zeros((1, PROMPT_CAP), np.int64)])
-    c_len = 530
-    ids[3, :c_len] = np.random.default_rng(2).integers(1, QWEN3_8B.vocab_size - 2, size=c_len)
+    c_len = C_LEN
+    ids[3, :c_len] = c_prompt()
     lens = np.asarray([PROMPT_LEN, PROMPT_LEN, PROMPT_LEN, c_len])
     kw = dict(tcfg=QWEN3_8B, dcfg=engine.dcfg)
     reset_counts()
@@ -854,7 +886,126 @@ def batched_parity_phase(engine: SpecEngine, single: list, tag: str) -> dict:
               "lane 3 == single C": np.array_equal(outs[3], alone.output_ids)}
     log(f"{tag} {json.dumps(checks)}; tokens per lane {[int(o.shape[1] - l) for o, l in zip(outs, lens)]}")
     assert all(checks.values()), checks
+    return alone.output_ids
+
+
+# ---------------------------------------------------------------------------
+# phases 4g and 5f: the serving engine (engine/batching.py, engine/server.py)
+# ---------------------------------------------------------------------------
+
+def serving_engine(params: tuple, lanes: int, max_new: int, **kw) -> ContinuousBatchingEngine:
+    dcfg, t_params, d_params = params
+    cfg = EngineConfig(num_lanes=lanes, max_new_tokens=max_new, block_size=BLOCK, prompt_cap=PROMPT_CAP, **kw)
+    return ContinuousBatchingEngine(QWEN3_8B, dcfg, t_params, d_params, cfg, tokenizer=SyntheticTokenizer(V),
+                                    device="cuda")
+
+
+def served(req, tag: str) -> np.ndarray:
+    assert req.done_event.is_set() and req.error is None, (tag, req.error)
+    return req.output_ids
+
+
+def serving_parity_phase(params: tuple, greedy: list, c_tokens: np.ndarray) -> dict:
+    """Phase 4g: six requests on four lanes of the serving engine (more
+    requests than lanes: two are admitted while the others decode), each
+    equal to its single-request tokens, with exact launch counts; then the
+    same engine behind the HTTP server."""
+    log("[serving] f32 ContinuousBatchingEngine, 4 lanes, sampling_filters; requests A, B, A, C, B (32 new), "
+        "A filtered (temperature 2, top_k 2, top_p 1e-6)")
+    engine = serving_engine(params, 4, PARITY_NEW, sampling_filters=True)
+    a, b = (p[0] for p in prompts())
+    reset_counts()
+    reqs = [engine.submit(a), engine.submit(b), engine.submit(a), engine.submit(c_prompt()),
+            engine.submit(b, max_new_tokens=32), engine.submit(a, temperature=2.0, top_k=2, top_p=1e-6, seed=0)]
+    engine.run_until_drained()
+    got = counts()
+    L, Ld = QWEN3_8B.num_hidden_layers, engine.dcfg.model.num_hidden_layers
+    filtered_cycles = reqs[5].meta_info["spec_verify_ct"]
+    expected = dict.fromkeys(counts(), 0)
+    expected.update(verify_fused=engine.cycle_count * (L + Ld), prefill_flash=len(reqs) * L,
+                    filter_stats=1 + filtered_cycles)
+    log(f"[serving] {engine.cycle_count} cycles run; per request (tokens, cycles): "
+        f"{[(r.meta_info['completion_tokens'], r.meta_info['spec_verify_ct']) for r in reqs]}; "
+        f"launches {json.dumps(got)} expected {json.dumps(expected)}")
+    assert got == expected, (got, expected)
+    outs = [served(r, f"request {i}") for i, r in enumerate(reqs)]
+    checks = {"A == single A": np.array_equal(outs[0], greedy[0]),
+              "B == single B": np.array_equal(outs[1], greedy[1]),
+              "second A == single A": np.array_equal(outs[2], greedy[0]),
+              "C == single C": np.array_equal(outs[3], c_tokens),
+              "B (32 new) == prefix of single B": np.array_equal(outs[4], greedy[1][:, :PROMPT_LEN + 32]),
+              "filtered A == single A": np.array_equal(outs[5], greedy[0])}
+    log(f"[serving] {json.dumps(checks)}")
+    assert all(checks.values()), checks
+
+    srv = EngineHTTPServer(engine, host="127.0.0.1", port=0, tokenizer=engine.tokenizer)
+    srv.start()
+    try:
+        url = f"http://{srv.host}:{srv.port}"
+        body = {"input_ids": a.tolist(), "sampling_params": {"max_new_tokens": PARITY_NEW, "temperature": 0}}
+        plain = serving._post(url, body)
+        streamed = serving._consume_sse(url, {**body, "stream": True})
+    finally:
+        srv.stop()
+    want = greedy[0][0, PROMPT_LEN:].tolist()
+    http = {"/generate == single A": plain["output_ids"] == want,
+            "/generate stream == single A": streamed["output_ids"] == want}
+    log(f"[serving-http] {url}: {json.dumps(http)}; meta {json.dumps(plain['meta_info'])}")
+    assert all(http.values()), http
     return got
+
+
+def serving_int8_phase(params: tuple, greedy_int8: list) -> None:
+    """Phase 4g (int8): one A request through an int8 serving engine
+    (kv_quant) equals phase 4b's tokens."""
+    engine = serving_engine(params, 4, PARITY_NEW, kv_quant=True)
+    reset_counts()
+    req = engine.submit(prompts()[0][0])
+    engine.run_until_drained()
+    got = counts()
+    ok = np.array_equal(served(req, "int8 A"), greedy_int8[0])
+    log(f"[serving-int8] A through the int8 serving engine == phase 4b's tokens: {ok}; launches {json.dumps(got)}")
+    assert ok
+    assert all(got[k] > 0 for k in ("prefill_flash", "verify_fused", "verify_fused_int8_ctx", "matmul_int8")), got
+
+
+def serving_timing_phase(params: tuple, smi: str) -> list:
+    """Phase 5f: the bf16 serving engine (SERVE_LANES lanes, TIMING_NEW new
+    tokens, steps_per_sync 4) behind the HTTP server, driven by
+    bench/serving.py's client at each concurrency c with 2c distinct random
+    600-token prompts, at the random draft's tau and the emulated 7.46."""
+    rows = []
+    rng = np.random.default_rng(100)
+    for tau in (None, REF_TAU):
+        engine = serving_engine(params, SERVE_LANES, TIMING_NEW, steps_per_sync=4, emulate_tau=tau)
+        srv = EngineHTTPServer(engine, host="127.0.0.1", port=0, tokenizer=engine.tokenizer)
+        srv.start()
+        try:
+            url = f"http://{srv.host}:{srv.port}"
+            fresh = lambda n: [rng.integers(10, V - 10, size=PROMPT_LEN).tolist() for _ in range(n)]  # noqa: E731
+            serving.run_bench_requests(url, fresh(2), 2, TIMING_NEW)  # warm-up
+            for conc in SERVE_CONCURRENCY:
+                serving._flush(url)
+                cycles0 = engine.cycle_count
+                m = serving.run_bench_requests(url, fresh(2 * conc), conc, TIMING_NEW)
+                assert m.spec_verify_ct_sum > 0, "speculative decoding did not run"
+                cycles = engine.cycle_count - cycles0
+                row = dict(tau_mode="own" if tau is None else f"forced {tau}", concurrency=conc,
+                           requests=m.n_requests, lanes=SERVE_LANES, new_tokens=TIMING_NEW,
+                           completion_tokens=m.completion_tokens, wall_s=m.wall_s, tok_s=m.tokens_per_sec,
+                           mean_accept_length=m.mean_accept_length, mean_e2e_latency_s=m.mean_e2e_latency_s,
+                           cycles=cycles, ms_per_cycle=m.wall_s * 1e3 / max(cycles, 1))
+                rows.append(row)
+                log("[timing-serving] " + json.dumps(row))
+        finally:
+            srv.stop()
+        del engine, srv
+        release()
+    for row in rows:
+        log(f"[timing-serving] {smi}: tau {row['tau_mode']:12s} conc {row['concurrency']:2d}: "
+            f"{row['tok_s']:8.1f} tok/s, accept length {row['mean_accept_length']:.2f}, mean e2e latency "
+            f"{row['mean_e2e_latency_s']:.3f} s, {row['ms_per_cycle']:.1f} ms per cycle ({row['cycles']} cycles)")
+    return rows
 
 
 def batched_timing_phase(params: tuple) -> list:
@@ -905,6 +1056,35 @@ def batched_timing_phase(params: tuple) -> list:
         del ids
         release()
     return rows
+
+
+def server_entry_phase() -> dict:
+    """Phase 5g: the server module's own entry point on the card, in a child
+    process: it must print its address, answer one /generate of a 600-token
+    prompt with tokens in the vocabulary, and stop when terminated."""
+    cmd = [sys.executable, "-m", "dflash_tpu_torch.engine.server", "--model-name-or-path", "qwen3-8b",
+           "--num-lanes", "8", "--port", "0", "--prompt-cap", str(PROMPT_CAP), "--max-new-tokens", "32"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    try:
+        line = ""
+        while not line.startswith("serving on http://"):
+            ready, _, _ = select.select([proc.stdout], [], [], 300)
+            assert ready and proc.poll() is None, f"the server did not start: {line}"
+            line = proc.stdout.readline()
+        url = line.split()[-1]
+        start_s = time.perf_counter() - t0
+        out = serving._post(url, {"input_ids": prompts()[0][0].tolist(),
+                                  "sampling_params": {"max_new_tokens": 32, "temperature": 0}})
+        ids = out["output_ids"]
+        assert 1 <= len(ids) <= 32 and min(ids) >= 0 and max(ids) < V, out
+        res = dict(cmd=" ".join(cmd[1:]), start_s=start_s, tokens=len(ids), meta_info=out["meta_info"])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    log("[server-main] " + json.dumps(res))
+    return res
 
 
 def main() -> int:
@@ -997,7 +1177,8 @@ def main() -> int:
 
     # phase 4: exact parity through the kernels, f32, on one set of weights:
     # 4 the default engine, 4c the "pallas" engine, 4d filtered requests, 4e
-    # the batched engine; 4b: the int8 path, 4f its batched engine
+    # the batched engine, 4g the serving engine; 4b: the int8 path, 4f its
+    # batched engine and 4g's int8 request
     t0 = time.perf_counter()
     params = build_params(torch.float32)
     torch.cuda.synchronize()
@@ -1009,17 +1190,25 @@ def main() -> int:
     log("[parity-pallas] tokens agreeing with phase 4's, per prompt: "
         f"{[agreement(a, b) for a, b in zip(pallas_out, greedy)]} of {PARITY_NEW}")
     launches_filtered = filtered_parity_phase(engine, greedy)
-    batched_parity_phase(engine, greedy, "[parity-lanes]")
-    del engine, params
+    c_tokens = batched_parity_phase(engine, greedy, "[parity-lanes]")
+    del engine
     release()
-    engine = make_engine(build_params(torch.float32, int8=True), PARITY_NEW, int8=True)
+    serving_parity_phase(params, greedy, c_tokens)
+    del params
+    release()
+    params = build_params(torch.float32, int8=True)
+    engine = make_engine(params, PARITY_NEW, int8=True)
     launches_int8, greedy_int8 = parity_phase(engine, "[parity-int8]")
     batched_parity_phase(engine, greedy_int8, "[parity-int8-lanes]")
     del engine
     release()
+    serving_int8_phase(params, greedy_int8)
+    del params
+    release()
 
     # phase 5: timing, bf16; 5c: the "pallas" path and filtered sampling, 5e
-    # the batched engine, on the same weights; 5b: the int8 path
+    # the batched engine, 5f the serving engine, on the same weights; 5b: the
+    # int8 path
     params = build_params(torch.bfloat16)
     engine = make_engine(params, TIMING_NEW)
     timing = timing_phase(engine)
@@ -1031,11 +1220,13 @@ def main() -> int:
     del engine
     release()
     timing_lanes = batched_timing_phase(params)
+    serving_timing_phase(params, smi)
     del params
     release()
     timing_int8 = timing_phase(make_engine(build_params(torch.bfloat16, int8=True), TIMING_NEW, int8=True))
     log("[timing-int8] " + json.dumps(timing_int8))
     release()
+    server_entry_phase()
     for key in ("ttft_spec_ms", "ttft_ar_ms", "ar_tpot_ms", "spec_tpot_ms", "spec_forced_tpot_ms"):
         log(f"[timing] {key}: bf16 path {timing[key]:.3f}, pallas path {timing_pallas[key]:.3f}, "
             f"int8 path {timing_int8[key]:.3f}")

@@ -11,6 +11,12 @@ thresholds in ordered-float-bit space, found from a candidate pool and checked
 by the ``filter_stats`` kernel (``kernels/filter_stats.py``) in one read of
 the logits per round.
 
+Per lane (the batched engine's [R] filters): ``sample_topk_topp`` takes R
+host temperatures, R generators and R host ``top_k`` / ``top_p`` values for
+logits [R, ..., V], and computes the keep sets of every lane that samples
+with a filter on in one call (one ``filter_stats`` launch plus its rounds,
+whatever R), as JAX's vmap over lanes does in one program.
+
 Where the port differs from JAX in form, not in result: the candidate pool is
 an exact ``torch.topk`` (JAX's ``approx_max_k`` at recall 0.95 equals exact
 top-k on the CPU; on the TPU it may miss, and the repair candidates absorb
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from dflash_tpu_torch.kernels.filter_stats import bits_as_int32, filter_stats
@@ -98,7 +105,7 @@ def exact_filter_thresholds(
     top_k,  # int or [...] tensor; <= 0 or >= V: off
     top_p,  # float or [...] tensor; >= 1: off
     pool_vals: torch.Tensor,  # [..., P] descending candidate values
-    stats: Callable = filter_stats,
+    stats: Optional[Callable] = None,
 ) -> torch.Tensor:
     """EXACT joint top-k / top-p keep mask [..., V] as value thresholds (JAX's
     function, step for step).
@@ -112,6 +119,7 @@ def exact_filter_thresholds(
     by 17-ary probing, one ``stats`` pass per round.  ``stats`` is the
     filter_stats function (the kernel dispatch by default; a test may pass
     the plain version)."""
+    stats = filter_stats if stats is None else stats
     V = scaled.shape[-1]
     P = pool_vals.shape[-1]
     W = min(REPAIR_W, P)
@@ -227,17 +235,19 @@ def exact_filter_thresholds(
 
 def filtered_logits_topk_topp(
     logits: torch.Tensor,  # [..., V] float32
-    temp: float,  # >= GREEDY_TEMP_EPS
-    top_k,
-    top_p,
+    temp,  # >= GREEDY_TEMP_EPS: a float, or a tensor broadcasting against logits (one per row)
+    top_k,  # int or a tensor over the leading axes
+    top_p,  # float or a tensor over the leading axes
     pool: int,
-    stats: Callable = filter_stats,
+    stats: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Full-vocab logits / temp with everything outside the joint top-k /
     top-p keep set at -inf: the exact filter a full-sort sampler applies
     (HF/SGLang rule: rank < top_k AND cumulative probability before the
     token < top_p, over the full-vocab softmax).  ``pool`` only seeds the
-    threshold search; the keep set is exact for any ``top_k``."""
+    threshold search; the keep set is exact for any ``top_k``.  Each row
+    takes its own temperature, ``top_k`` and ``top_p`` when they are
+    tensors (JAX's function vmapped over lanes)."""
     pool = min(pool, logits.shape[-1])
     scaled = logits / temp
     cand_vals = torch.topk(scaled, pool, dim=-1, sorted=True).values  # descending
@@ -247,24 +257,66 @@ def filtered_logits_topk_topp(
 
 def sample_topk_topp(
     logits: torch.Tensor,
-    temperature: float,
-    generator: Optional[torch.Generator],
-    top_k: int,
-    top_p: float,
+    temperature: Union[float, Sequence[float]],
+    generator: Union[None, torch.Generator, Sequence[Optional[torch.Generator]]],
+    top_k,
+    top_p,
     pool: int = TOPK_POOL,
 ) -> torch.Tensor:
     """:func:`sample` with top-k / top-p filtering (temperature first, then
     the filters, then a categorical draw over the masked full-vocab logits).
     Below the greedy epsilon it is argmax whatever the filters; with both
     filters off (``top_k <= 0`` or ``>= V``, ``top_p >= 1``) it is
-    :func:`sample`, bit for bit for the same generator state."""
+    :func:`sample`, bit for bit for the same generator state.
+
+    Per lane: ``temperature`` R host floats, ``generator`` one per lane (or
+    one shared), ``top_k`` / ``top_p`` host scalars or R host values, for
+    logits [R, ..., V] (see :func:`_sample_lanes`)."""
     logits = logits.float()
+    if not isinstance(temperature, (int, float)):
+        return _sample_lanes(logits, temperature, generator, top_k, top_p, pool)
     if temperature < GREEDY_TEMP_EPS:
         return logits.argmax(dim=-1)
     if not (0 < top_k < logits.shape[-1] or top_p < 1.0):
         return sample(logits, temperature, generator)
     temp = max(temperature, GREEDY_TEMP_EPS)
     return _draw(filtered_logits_topk_topp(logits, temp, top_k, top_p, pool), generator)
+
+
+def _sample_lanes(logits: torch.Tensor, temperature: Sequence[float], generator, top_k, top_p,
+                  pool: int) -> torch.Tensor:
+    """The per-lane form of :func:`sample_topk_topp`: lane r's rows take its
+    own temperature, filters and generator.  The keep sets of the lanes that
+    sample with a filter on come from one :func:`filtered_logits_topk_topp`
+    over their rows (one ``filter_stats`` call plus its refinement rounds,
+    whatever R); each such lane then draws from its own masked rows.  A
+    greedy lane takes the argmax, and a sampled lane with both filters off
+    draws exactly as :func:`sample` does for it alone, so no lane's tokens
+    depend on its neighbours'."""
+    R, V = logits.shape[0], logits.shape[-1]
+    temps = [float(t) for t in temperature]
+    ks = np.broadcast_to(np.asarray(top_k, np.int64), (R,))
+    ps = np.broadcast_to(np.asarray(top_p, np.float32), (R,))
+    gens = list(generator) if isinstance(generator, (list, tuple)) else [generator] * R
+    filtered = [r for r in range(R)
+                if temps[r] >= GREEDY_TEMP_EPS and (0 < ks[r] < V or ps[r] < 1.0)]
+    if not filtered:
+        return sample(logits, temps, gens)
+    dev = logits.device
+    lead = (len(filtered),) + (1,) * (logits.dim() - 2)
+    host = lambda a, dtype: torch.tensor(a, dtype=dtype).reshape(lead).to(dev)  # noqa: E731
+    rows = logits[torch.tensor(filtered, device=dev)]
+    masked = filtered_logits_topk_topp(
+        rows, host([max(temps[r], GREEDY_TEMP_EPS) for r in filtered], torch.float32)[..., None],
+        host(ks[filtered], torch.int64), host(ps[filtered], torch.float32), pool)
+    out = logits.argmax(dim=-1)
+    row = {r: j for j, r in enumerate(filtered)}
+    for r in range(R):
+        if r in row:
+            out[r] = _draw(masked[row[r]], gens[r])
+        elif temps[r] >= GREEDY_TEMP_EPS:
+            out[r] = sample(logits[r], temps[r], gens[r])
+    return out
 
 
 def acceptance_length(draft_tokens: torch.Tensor, posterior: torch.Tensor) -> torch.Tensor:

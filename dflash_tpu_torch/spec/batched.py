@@ -25,8 +25,12 @@ frontier, stop flag and cycle count back once per cycle.
 
 Temperature: a scalar or one per lane; sampled lanes draw from one
 ``torch.Generator`` per lane, seeded from ``keys`` (JAX's per-lane PRNG
-keys; the same distribution, not the same tokens).  Not ported (they raise
-``NotImplementedError``): per-lane top-k / top-p ``filters`` and the mesh
+keys; the same distribution, not the same tokens).  Top-k / top-p:
+``filters`` (``SamplingFilters``) with scalar leaves shared by the group in
+``batched_prefill``, and [R] leaves (host values) in the decode functions;
+the keep sets of every filtered lane come from one filtered-sampler call per
+sampling step (one ``filter_stats`` launch plus its rounds, whatever R), and
+equal JAX's.  Not ported (they raise ``NotImplementedError``): the mesh
 (``state_shardings``, ``shard_state``).
 """
 
@@ -41,16 +45,12 @@ from dflash_tpu_torch.core.config import DraftConfig, ModelConfig
 from dflash_tpu_torch.ops.sampling import GREEDY_TEMP_EPS, TOPK_POOL
 from dflash_tpu_torch.spec.engine import (
     LaneState,
+    SamplingFilters,
     _cycle,
     _prefill_lanes,
     lane_temperatures,
     trim_output,
 )
-
-
-def _no_filters(filters) -> None:
-    if filters is not None:
-        raise NotImplementedError("per-lane top-k / top-p filters are not ported to the batched engine yet")
 
 
 def state_shardings(mesh):
@@ -85,13 +85,12 @@ def batched_prefill(
     total_len: int,
     max_cycles: int,
     kv_quant: bool = False,
-    filters=None,
+    filters: Optional[SamplingFilters] = None,  # scalar leaves, shared by the group
     topk_pool: int = TOPK_POOL,
 ) -> LaneState:
     """Prefill of every lane in one target forward; returns the lanes'
     decode state (the lane axis leading everywhere except the KV caches,
     where it sits behind the layer axis)."""
-    _no_filters(filters)
     device = t_params["final_norm"].device
     ids = torch.as_tensor(np.asarray(input_ids)).to(device=device, dtype=torch.long)
     ids = ids.reshape(ids.shape[0], ids.shape[-1])
@@ -101,7 +100,8 @@ def batched_prefill(
         raise ValueError(f"prompt_lens {lens.tolist()} must lie in [1, {P}], total_len {total_len} above {P}")
     temps = lane_temperatures(temperature, R)
     return _prefill_lanes(t_params, d_params, ids, lens, temps, _generators(keys, R, temps, device),
-                          tcfg=tcfg, dcfg=dcfg, total_len=total_len, max_cycles=max_cycles, kv_quant=kv_quant)
+                          tcfg=tcfg, dcfg=dcfg, total_len=total_len, max_cycles=max_cycles, kv_quant=kv_quant,
+                          filters=filters, topk_pool=topk_pool)
 
 
 def _loop_inputs(state: LaneState, temperature, max_lengths, forced_acc, stop_token_ids) -> tuple:
@@ -134,13 +134,12 @@ def batched_decode(
     stop_token_ids: Tuple[int, ...],
     max_cycles: int,
     forced_acc=None,  # optional [R, max_cycles] per-lane acceptance override
-    filters=None,
+    filters: Optional[SamplingFilters] = None,  # [R] leaves (host values): per-lane top-k / top-p
     topk_pool: int = TOPK_POOL,
 ) -> LaneState:
     """Cycle every lane until each reaches its ``max_length``, commits a stop
     token or runs ``max_cycles`` cycles; finished lanes freeze (see the
     module docstring).  Updates ``state`` in place and returns it."""
-    _no_filters(filters)
     temps, ml, ml_dev, fa, stop = _loop_inputs(state, temperature, max_lengths, forced_acc, stop_token_ids)
     while True:
         host_active = (state.host_start < ml) & ~state.host_done & (state.host_cycle_idx < max_cycles)
@@ -148,7 +147,7 @@ def batched_decode(
             return state
         active = (state.start < ml_dev) & ~state.done & (state.cycle_idx < max_cycles)
         _cycle(state, t_params, d_params, temps, active, host_active, tcfg=tcfg, dcfg=dcfg,
-               block_size=block_size, stop_ids=stop, forced_acc=fa)
+               block_size=block_size, stop_ids=stop, forced_acc=fa, filters=filters, topk_pool=topk_pool)
 
 
 def batched_cycles(
@@ -164,14 +163,13 @@ def batched_cycles(
     stop_token_ids: Tuple[int, ...],
     n_steps: int = 1,
     forced_acc=None,  # optional [max_cycles] shared acceptance override
-    filters=None,
+    filters: Optional[SamplingFilters] = None,  # [R] leaves (host values): per-lane top-k / top-p
     topk_pool: int = TOPK_POOL,
 ) -> LaneState:
     """``n_steps`` cycles of every active lane (the continuous-batching
     engine's multi-step unit).  Lanes that finish mid-window freeze as in
     :func:`batched_decode`; there is no cycle cap.  Once no lane is active
     the remaining steps change nothing and are not run."""
-    _no_filters(filters)
     temps, ml, ml_dev, fa, stop = _loop_inputs(state, temperature, max_lengths, forced_acc, stop_token_ids)
     for _ in range(n_steps):
         host_active = (state.host_start < ml) & ~state.host_done
@@ -179,7 +177,7 @@ def batched_cycles(
             break
         active = (state.start < ml_dev) & ~state.done
         _cycle(state, t_params, d_params, temps, active, host_active, tcfg=tcfg, dcfg=dcfg,
-               block_size=block_size, stop_ids=stop, forced_acc=fa)
+               block_size=block_size, stop_ids=stop, forced_acc=fa, filters=filters, topk_pool=topk_pool)
     return state
 
 
@@ -193,6 +191,8 @@ def batched_cycle(
     dcfg: DraftConfig,
     block_size: int,
     stop_token_ids: Tuple[int, ...],
+    filters: Optional[SamplingFilters] = None,  # [R] leaves (host values): per-lane top-k / top-p
+    topk_pool: int = TOPK_POOL,
 ) -> LaneState:
     """One draft -> verify -> accept step of every lane, none frozen (the unit
     the continuous-batching scheduler drives)."""
@@ -200,7 +200,7 @@ def batched_cycle(
     temps, _, _, _, stop = _loop_inputs(state, temperature, np.zeros(R), None, stop_token_ids)
     active = torch.ones(R, dtype=torch.bool, device=state.start.device)
     return _cycle(state, t_params, d_params, temps, active, np.ones(R, bool), tcfg=tcfg, dcfg=dcfg,
-                  block_size=block_size, stop_ids=stop)
+                  block_size=block_size, stop_ids=stop, filters=filters, topk_pool=topk_pool)
 
 
 def lane_outputs(state: LaneState, prompt_lens, max_new_tokens: int, mask_token_id: int,

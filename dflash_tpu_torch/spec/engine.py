@@ -37,11 +37,13 @@ route above.
 
 The lane stages (``LaneState``, ``_prefill_lanes``, ``_draft_stage_lanes``,
 ``_verify_stage_lanes``, ``_cycle``) run the same cycle for R requests at
-once, for ``spec/batched.py``: every lane's frontier, stop flag and cycle
-count live on the device, the commit, the output writes and the feature
-recycling are indexed writes over the lanes, and the one host read of a
-cycle refreshes their host mirrors.  The single-request engine keeps its own
-stages and launch counts.
+once, for ``spec/batched.py`` and the serving engine: every lane's frontier,
+stop flag and cycle count live on the device, the commit, the output writes
+and the feature recycling are indexed writes over the lanes, and the one
+host read of a cycle refreshes their host mirrors.  Each lane samples at its
+own temperature and top-k / top-p (``SamplingFilters`` with [R] leaves): the
+keep sets of every filtered lane come from one filtered-sampler call.  The
+single-request engine keeps its own stages and launch counts.
 
 Not ported yet (they raise): ``attn_impl`` "fused" / "bucketed" /
 "xla_fullbuf", chunked / prefix prefill, meshes and sequence sharding.
@@ -74,10 +76,20 @@ ATTN_IMPLS = ("xla", "pallas")
 class SamplingFilters(NamedTuple):
     """Per-request top-k / top-p filters (the rest of the reference serving
     client's ``sampling_params``).  ``top_k <= 0`` and ``top_p >= 1``
-    disable."""
+    disable.  The lane stages take host scalars (shared by every lane) or R
+    host values, one per lane."""
 
     top_k: int
     top_p: float
+
+
+def _lane_posterior(logits: torch.Tensor, temps: list, generators, filters: Optional[SamplingFilters],
+                    topk_pool: int) -> torch.Tensor:
+    """Token ids [R, ...] from lane logits [R, ..., V]: each lane at its own
+    temperature and (with ``filters``) its own top-k / top-p."""
+    if filters is None:
+        return sample(logits, temps, generators)
+    return sample_topk_topp(logits, temps, generators, filters.top_k, filters.top_p, pool=topk_pool)
 
 
 def _sample_posterior(logits: torch.Tensor, temperature: float, generator,
@@ -307,7 +319,8 @@ def lane_temperatures(temperature, R: int) -> list:
 
 def _prefill_lanes(t_params, d_params, input_ids: torch.Tensor, prompt_lens: np.ndarray, temps: list,
                    generators, *, tcfg: ModelConfig, dcfg: DraftConfig, total_len: int, max_cycles: int,
-                   kv_quant: bool = False) -> LaneState:
+                   kv_quant: bool = False, filters: Optional[SamplingFilters] = None,
+                   topk_pool: int = TOPK_POOL) -> LaneState:
     """Target prefill of R prompts padded to one bucket ``input_ids`` [R, P]
     (one forward), each lane's first token from its last prompt row, and the
     draft context prefill (JAX's ``_prefill_impl`` vmapped over lanes)."""
@@ -325,7 +338,7 @@ def _prefill_lanes(t_params, d_params, input_ids: torch.Tensor, prompt_lens: np.
     lanes = torch.arange(R, device=device)
     pl = torch.as_tensor(prompt_lens, dtype=torch.long).to(device)
     last_hidden = res.hidden[lanes, pl - 1][:, None]  # [R, 1, H]
-    first = sample(qwen3.lm_head(t_params, last_hidden), temps, generators)  # [R, 1]
+    first = _lane_posterior(qwen3.lm_head(t_params, last_hidden), temps, generators, filters, topk_pool)  # [R, 1]
 
     output_ids = torch.full((R, total_len), dcfg.mask_token_id, dtype=torch.long, device=device)
     output_ids[:, :P] = torch.where(positions < pl[:, None], input_ids, dcfg.mask_token_id)
@@ -388,12 +401,15 @@ def _draft_stage_lanes(state: LaneState, fr: _Frontier, t_params, d_params, *, d
 
 
 def _verify_stage_lanes(state: LaneState, fr: _Frontier, block: torch.Tensor, t_params, temps: list,
-                        active: torch.Tensor, *, tcfg: ModelConfig, dcfg: DraftConfig, block_size: int,
-                        stop_ids: Optional[torch.Tensor], forced_acc: Optional[torch.Tensor]) -> None:
+                        active: torch.Tensor, host_active: np.ndarray, *, tcfg: ModelConfig, dcfg: DraftConfig,
+                        block_size: int, stop_ids: Optional[torch.Tensor], forced_acc: Optional[torch.Tensor],
+                        filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> None:
     """Every lane's verify in one target forward, acceptance, commit at its
     frontier and feature recycling, all on the device.  Lanes not ``active``
     keep their tokens, frontier, flags and trace (JAX's freeze select); their
-    caches and features advance harmlessly, as in JAX."""
+    caches and features advance harmlessly, as in JAX.  Their posterior is
+    discarded, so they take the argmax: a frozen lane draws nothing from its
+    generator and adds no rows to the filtered sampler."""
     B = block_size
     R = block.shape[0]
     device = block.device
@@ -401,7 +417,9 @@ def _verify_stage_lanes(state: LaneState, fr: _Frontier, block: torch.Tensor, t_
         t_params, tcfg, qwen3.embed(t_params, block)[:, None], fr.block_idx[:, None], state.t_kv, fr.pos,
         tap_ids=dcfg.target_layer_ids, max_start=fr.max_pos)
     update_any(state.t_kv, res.blk_k[:, :, 0], res.blk_v[:, :, 0], fr.pos, fr.max_pos)
-    posterior = sample(qwen3.lm_head(t_params, res.hidden[:, 0]), temps, state.generators)  # [R, B]
+    temps = [t if a else 0.0 for t, a in zip(temps, host_active)]
+    posterior = _lane_posterior(qwen3.lm_head(t_params, res.hidden[:, 0]), temps, state.generators, filters,
+                                topk_pool)  # [R, B]
 
     acc = acceptance_length(block[:, 1:], posterior)  # [R]
     # cycle indices clamp to the array, as JAX's gather and update clamp them
@@ -432,14 +450,16 @@ def _verify_stage_lanes(state: LaneState, fr: _Frontier, block: torch.Tensor, t_
 
 def _cycle(state: LaneState, t_params, d_params, temps: list, active: torch.Tensor, host_active: np.ndarray, *,
            tcfg: ModelConfig, dcfg: DraftConfig, block_size: int, stop_ids: Optional[torch.Tensor],
-           forced_acc: Optional[torch.Tensor] = None) -> LaneState:
+           forced_acc: Optional[torch.Tensor] = None, filters: Optional[SamplingFilters] = None,
+           topk_pool: int = TOPK_POOL) -> LaneState:
     """One draft -> verify -> accept cycle of every lane (JAX's ``_cycle``
     under the batched engine's vmap) and its one host read.  ``active`` [R]
     (device) and ``host_active``: the lanes whose small state advances."""
     fr = _frontier(state, host_active, block_size)
     block = _draft_stage_lanes(state, fr, t_params, d_params, dcfg=dcfg, block_size=block_size)
-    _verify_stage_lanes(state, fr, block, t_params, temps, active, tcfg=tcfg, dcfg=dcfg,
-                        block_size=block_size, stop_ids=stop_ids, forced_acc=forced_acc)
+    _verify_stage_lanes(state, fr, block, t_params, temps, active, host_active, tcfg=tcfg, dcfg=dcfg,
+                        block_size=block_size, stop_ids=stop_ids, forced_acc=forced_acc, filters=filters,
+                        topk_pool=topk_pool)
     state.refresh()
     return state
 

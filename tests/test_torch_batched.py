@@ -211,9 +211,6 @@ def test_batched_rejects_what_is_not_ported():
     tt, td, ttp, tdp = _models(False)[4:]
     ids, lens = _prompts()
     with pytest.raises(NotImplementedError):
-        tb.batched_prefill(ttp, tdp, ids, lens, 0.0, tcfg=tt, dcfg=td, total_len=TOTAL_LEN,
-                           max_cycles=MAX_CYCLES, filters=object())
-    with pytest.raises(NotImplementedError):
         tb.state_shardings(None)
     st = tb.batched_prefill(ttp, tdp, ids, lens, 0.0, tcfg=tt, dcfg=td, total_len=TOTAL_LEN, max_cycles=MAX_CYCLES)
     with pytest.raises(NotImplementedError):

@@ -25,6 +25,9 @@ import dflash_tpu_torch, dflash_tpu_torch.convert, dflash_tpu_torch.kernels._bui
 import dflash_tpu_torch.kernels.prefill_flash, dflash_tpu_torch.kernels.verify_fused
 import dflash_tpu_torch.kernels.matmul_q, dflash_tpu_torch.quant
 import dflash_tpu_torch.kernels.filter_stats, dflash_tpu_torch.kernels.attention
+import dflash_tpu_torch.engine, dflash_tpu_torch.engine.batching, dflash_tpu_torch.engine.server
+import dflash_tpu_torch.bench, dflash_tpu_torch.bench.cli, dflash_tpu_torch.bench.tokenizer
+import dflash_tpu_torch.bench.serving
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "dflash_tpu" or m.startswith("dflash_tpu."))
