@@ -13,7 +13,9 @@ engine (spec/batched.py: R request lanes in one forward per cycle, the
 attention kernels' lane entries with per-lane frontiers on the card), on the
 float and the int8 path, and the serving entry point (engine/batching.py's
 continuous batching engine behind engine/server.py's HTTP server, with
-per-lane top-k / top-p).
+per-lane top-k / top-p) with each of its admission routes: batched
+admission, the prompt-prefix cache, chunk-interleaved admission,
+prefill-ahead and a disaggregated prefill worker.
 
 Phases, each fatal on failure (nothing is caught):
   1. device: card name and power limit; TF32 off for matmuls and cuDNN.
@@ -77,6 +79,19 @@ Phases, each fatal on failure (nothing is caught):
      the filtered request (1 + its cycles); then two /generate bodies (one
      streamed) through EngineHTTPServer on 127.0.0.1 give A's tokens; and
      after 4f one A request through an int8 engine (kv_quant) gives 4b's.
+     4h: the serving engine's admission routes on phase 4's weights, 4
+     lanes, 64 new tokens, each token list equal to its single-request
+     tokens and each run's launch counts exact: batch_admission (A, B, A, C
+     as one group: prefill_flash 36 in all); the prefix cache (A cold
+     publishes its 512-row prefix, D, which shares A's first 512 tokens,
+     resumes from it with no prefill_flash launch, then D cold after a
+     flush; 1 hit); admission_chunk 256 (B and C, then A while they
+     decode: no prefill_flash); prefill_ahead 2 (six requests, two staged
+     while every lane is busy); a prefill worker on the same card (its
+     weights the engine's tensors; no prefill_flash); and after 4f A
+     through an int8 engine's prefix cache, cold then warm, equal to 4b's
+     tokens.  A difference prints the first token that differs and the
+     reference's top-2 logit margin there, and fails.
   5. timing, bf16, same shapes: TTFT, AR TPOT, spec TPOT at the random
      draft's real acceptance and at an emulated tau of 7.46, and the spec/AR
      agreement length (printed, not asserted: bf16 greedy can flip on ties).
@@ -89,13 +104,20 @@ Phases, each fatal on failure (nothing is caught):
      behind the HTTP server, driven by bench/serving.py's client at
      concurrency 1, 4 and 16 with 2 x concurrency distinct random 600-token
      prompts, at the random draft's tau and the emulated 7.46: tok/s, mean
-     accept length, mean end-to-end latency (timed, not gated);
+     accept length, mean end-to-end latency (timed, not gated); 5h: the
+     same serving setup at the emulated 7.46 through each admission route:
+     batch_admission off / on in turns (three pairs at concurrency 16, one
+     at 4; medians and spread), 512-token shared-prefix traffic with the
+     prefix cache off / on (1024 MB), admission_chunk 256, prefill_ahead 2
+     and a same-card prefill worker at 16: tok/s, mean e2e latency, accept
+     length, cycles and prefill_flash launches per run;
      5b: the int8 path; 5g: the server's own entry point, `python -m
      dflash_tpu_torch.engine.server --model-name-or-path qwen3-8b
      --num-lanes 8`, in a child process that answers one /generate and is
      then stopped.
-The last lines are the card's name and power limit, the kernels' JSON
-summary and the device JSON.  Exits non-zero, printing no result, without
+``[phase]`` lines give the seconds since the start at the end of each group
+of phases.  The last lines are the card's name and power limit, the
+kernels' JSON summary and the device JSON.  Exits non-zero, printing no result, without
 CUDA.
 """
 
@@ -119,9 +141,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from dflash_tpu_torch.bench import serving
 from dflash_tpu_torch.bench.tokenizer import SyntheticTokenizer
-from dflash_tpu_torch.cache.kv import quantize_rows
+from dflash_tpu_torch.cache.kv import init_kv_cache, quantize_rows
 from dflash_tpu_torch.core.config import QWEN3_8B, dflash_draft_config
-from dflash_tpu_torch.engine import ContinuousBatchingEngine, EngineConfig
+from dflash_tpu_torch.engine import ContinuousBatchingEngine, EngineConfig, PrefillWorker, Request
 from dflash_tpu_torch.engine.server import EngineHTTPServer
 from dflash_tpu_torch.kernels import _build, attention, filter_stats, matmul_q, prefill_flash, verify_fused
 from dflash_tpu_torch.models import dflash_draft, qwen3
@@ -129,6 +151,7 @@ from dflash_tpu_torch.ops import sampling
 from dflash_tpu_torch.ops.linear import QTensor, dequantize
 from dflash_tpu_torch.quant import quantize_draft_params, quantize_target_params
 from dflash_tpu_torch.spec import batched
+from dflash_tpu_torch.spec import engine as spec_engine
 from dflash_tpu_torch.spec.engine import SpecEngine
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate; bf16 tensor-core and
@@ -174,6 +197,12 @@ SERVE_LANES, SERVE_CONCURRENCY = 16, (1, 4, 16)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_done(name: str, t_start: float) -> None:
+    """A ``[phase]`` line: the seconds since the smoke started, at the end of
+    each group of phases (where the run's time goes as the script grows)."""
+    log(f"[phase] {name} done at {time.perf_counter() - t_start:.1f} s")
 
 
 def make_forced_acc(n_cycles: int, block_size: int, tau_target: float, seed: int = 0) -> np.ndarray:
@@ -893,11 +922,11 @@ def batched_parity_phase(engine: SpecEngine, single: list, tag: str) -> np.ndarr
 # phases 4g and 5f: the serving engine (engine/batching.py, engine/server.py)
 # ---------------------------------------------------------------------------
 
-def serving_engine(params: tuple, lanes: int, max_new: int, **kw) -> ContinuousBatchingEngine:
+def serving_engine(params: tuple, lanes: int, max_new: int, prefill_worker=None, **kw) -> ContinuousBatchingEngine:
     dcfg, t_params, d_params = params
     cfg = EngineConfig(num_lanes=lanes, max_new_tokens=max_new, block_size=BLOCK, prompt_cap=PROMPT_CAP, **kw)
     return ContinuousBatchingEngine(QWEN3_8B, dcfg, t_params, d_params, cfg, tokenizer=SyntheticTokenizer(V),
-                                    device="cuda")
+                                    prefill_worker=prefill_worker, device="cuda")
 
 
 def served(req, tag: str) -> np.ndarray:
@@ -969,6 +998,215 @@ def serving_int8_phase(params: tuple, greedy_int8: list) -> None:
     assert all(got[k] > 0 for k in ("prefill_flash", "verify_fused", "verify_fused_int8_ctx", "matmul_int8")), got
 
 
+# ---------------------------------------------------------------------------
+# phases 4h and 5h: the serving engine's admission routes
+# ---------------------------------------------------------------------------
+
+def first_difference(got: np.ndarray, want: np.ndarray):
+    """Index of the first token where two [1, L] outputs differ (None if equal)."""
+    n = min(got.shape[1], want.shape[1])
+    diff = np.nonzero(got[0, :n] != want[0, :n])[0]
+    if diff.size:
+        return int(diff[0])
+    return None if got.shape == want.shape else n
+
+
+def top2_margin(t_params, ids: np.ndarray, pos: int) -> float:
+    """The target's top-2 logit gap where it predicts token ``pos`` of ``ids``
+    (one prefill over ids[:pos]): how near a tie the two outputs split."""
+    x = torch.as_tensor(ids[:pos], device="cuda")[None]
+    res = qwen3.forward_prefill(t_params, QWEN3_8B, qwen3.embed(t_params, x), torch.arange(pos, device="cuda")[None])
+    top = qwen3.lm_head(t_params, res.hidden[:, -1]).topk(2).values[0]
+    return float(top[0] - top[1])
+
+
+def check_tokens(tag: str, checks: dict, t_params) -> None:
+    """``checks``: name -> (got, want) [1, L] outputs.  Every pair must be
+    equal; for a pair that is not, logs the first token that differs and the
+    reference's top-2 logit margin there, then fails."""
+    ok = {name: np.array_equal(got, want) for name, (got, want) in checks.items()}
+    log(f"{tag} {json.dumps(ok)}")
+    for name, (got, want) in checks.items():
+        if not ok[name]:
+            i = first_difference(got, want)
+            margin = top2_margin(t_params, want[0], i) if i < want.shape[1] else None
+            log(f"{tag} {name}: first difference at token {i} (generated token {i - PROMPT_LEN}): "
+                f"got {got[0, i] if i < got.shape[1] else 'nothing'}, want {want[0, i] if i < want.shape[1] else 'nothing'}; "
+                f"top-2 logit margin of the reference there {margin}")
+    assert all(ok.values()), ok
+
+
+def serving_expected(engine: ContinuousBatchingEngine, cycles: int, prefills: int, resumes: int = 0) -> dict:
+    """Launch counts of a serving run: ``prefills`` prefill forwards (36
+    prefill_flash each: single-request or a group's batched prefill),
+    ``resumes`` prefix resumes and chunk / worker forwards (no attention
+    kernel: the "xla" branch), ``cycles`` cycles run (37 verify_fused each,
+    the int8 path 36 of them through the int8-ctx branch); the int8 path's
+    matmul_int8: 256 per admission (a target forward + the draft's context
+    projection) and 264 per cycle."""
+    L, Ld = QWEN3_8B.num_hidden_layers, engine.dcfg.model.num_hidden_layers
+    expected = dict.fromkeys(counts(), 0)
+    expected["prefill_flash"] = prefills * L
+    if engine.cfg.kv_quant:
+        target_fwd, draft_append, draft_fwd = 7 * L + 1, 1 + 2 * Ld, 7 * Ld + 1
+        expected.update(verify_fused=cycles * Ld, verify_fused_int8_ctx=cycles * L,
+                        matmul_int8=(prefills + resumes) * (target_fwd + draft_append)
+                        + cycles * (draft_append + draft_fwd + target_fwd))
+    else:
+        expected["verify_fused"] = cycles * (L + Ld)
+    return expected
+
+
+def counted_run(engine: ContinuousBatchingEngine, tag: str, expected_of, drive) -> list:
+    """Counts set to 0, ``drive(engine)`` (submits and runs; returns the
+    requests), counts read: they must equal ``expected_of(cycles run)``."""
+    cycles0 = engine.cycle_count
+    reset_counts()
+    reqs = drive(engine)
+    got = counts()
+    cycles = engine.cycle_count - cycles0
+    expected = expected_of(cycles)
+    log(f"{tag} {cycles} cycles; per request (tokens, cycles): "
+        f"{[(r.meta_info['completion_tokens'], r.meta_info['spec_verify_ct']) for r in reqs]}; "
+        f"launches {json.dumps(got)} expected {json.dumps(expected)}")
+    assert got == expected, (tag, got, expected)
+    return [served(r, f"{tag} request {i}") for i, r in enumerate(reqs)]
+
+
+def d_prompt() -> np.ndarray:
+    """Prompt D: A's first 512 tokens (four prompt buckets), then 88 of its own."""
+    return np.concatenate([prompts()[0][0, :512],
+                           np.random.default_rng(3).integers(1, QWEN3_8B.vocab_size - 2, size=PROMPT_LEN - 512)])
+
+
+def admission_parity_phase(params: tuple, greedy: list, c_tokens: np.ndarray) -> None:
+    """Phase 4h (float): each admission route of the serving engine on four
+    lanes gives the single-request tokens of phases 4 / 4g, with the launch
+    counts its route implies."""
+    dcfg, t_params, _ = params
+    a, b = (p[0] for p in prompts())
+    c, d = c_prompt(), d_prompt()
+    ref_a, ref_b = greedy
+    submit_all = lambda *reqs: lambda eng: [eng.submit(p, **kw) for p, kw in reqs]  # noqa: E731
+
+    def drained(submit):
+        def drive(eng):
+            reqs = submit(eng)
+            eng.run_until_drained()
+            return reqs
+        return drive
+
+    # batched admission: one group, one batched prefill
+    engine = serving_engine(params, 4, PARITY_NEW, batch_admission=True)
+    outs = counted_run(engine, "[admission-group] A, B, A, C as one group:",
+                       lambda cyc: serving_expected(engine, cyc, prefills=1),
+                       drained(submit_all((a, {}), (b, {}), (a, {}), (c, {}))))
+    check_tokens("[admission-group]", {"A": (outs[0], ref_a), "B": (outs[1], ref_b), "second A": (outs[2], ref_a),
+                                        "C": (outs[3], c_tokens)}, t_params)
+    del engine
+    release()
+
+    # the prefix cache: A cold publishes its 512-token prefix, D resumes from
+    # it (no prefill_flash), then D cold after a flush
+    engine = serving_engine(params, 4, PARITY_NEW, prefix_cache_mb=1024)
+    cache = engine._prefix_cache
+    out_a, = counted_run(engine, "[admission-prefix] A cold:", lambda cyc: serving_expected(engine, cyc, 1),
+                         drained(submit_all((a, {}))))
+    warm_d, = counted_run(engine, "[admission-prefix] D warm (resumes from A's 512 rows):",
+                          lambda cyc: serving_expected(engine, cyc, 0, resumes=1), drained(submit_all((d, {}))))
+    hits = cache.hits
+    engine.flush()
+    cold_d, = counted_run(engine, "[admission-prefix] D cold (after a flush):",
+                          lambda cyc: serving_expected(engine, cyc, 1), drained(submit_all((d, {}))))
+    log(f"[admission-prefix] prefix cache: {hits} hit(s) before the flush, {cache.misses} misses in all")
+    assert hits == 1 and cache.misses == 2, (hits, cache.misses)
+    check_tokens("[admission-prefix]", {"A": (out_a, ref_a), "D warm == D cold": (warm_d, cold_d)}, t_params)
+    del engine, cache
+    release()
+
+    # chunk-interleaved admission (256-token chunks): B and C decode while A
+    # prefills chunk by chunk; every 600-token prompt takes the chunked route
+    engine = serving_engine(params, 4, PARITY_NEW, admission_chunk=256)
+
+    def busy_then_a(eng):
+        reqs = [eng.submit(b), eng.submit(c)]
+        while sum(r is not None for r in eng._lane_req) < 2:
+            eng.step()
+        reqs.append(eng.submit(a))
+        windows = 0
+        while reqs[2] not in eng._lane_req:
+            eng.step()
+            windows += 1
+        log(f"[admission-chunk] A bound after {windows} windows of B and C's decode (2 chunks of 256, then the "
+            f"88-token resume)")
+        eng.run_until_drained()
+        return reqs
+
+    outs = counted_run(engine, "[admission-chunk] B, C, then A:", lambda cyc: serving_expected(engine, cyc, 0, 3),
+                       busy_then_a)
+    check_tokens("[admission-chunk]", {"B": (outs[0], ref_b), "C": (outs[1], c_tokens), "A": (outs[2], ref_a)},
+                 t_params)
+    del engine
+    release()
+
+    # prefill-ahead: four lanes busy, the next two staged
+    engine = serving_engine(params, 4, PARITY_NEW, prefill_ahead=2)
+
+    def staged_drive(eng):
+        reqs = [eng.submit(p) for p in (a, b, a, c)] + [eng.submit(b, max_new_tokens=32), eng.submit(a)]
+        most = 0
+        while eng.step() or not eng._idle():
+            most = max(most, len(eng._staged))
+        log(f"[admission-ahead] at most {most} staged while every lane was busy")
+        assert most == 2, most
+        return reqs
+
+    outs = counted_run(engine, "[admission-ahead] A, B, A, C, B (32 new), A:",
+                       lambda cyc: serving_expected(engine, cyc, 6), staged_drive)
+    check_tokens("[admission-ahead]", {"A": (outs[0], ref_a), "B": (outs[1], ref_b), "second A": (outs[2], ref_a),
+                                        "C": (outs[3], c_tokens), "B (32 new)": (outs[4], ref_b[:, :PROMPT_LEN + 32]),
+                                        "third A": (outs[5], ref_a)}, t_params)
+    del engine
+    release()
+
+    # disaggregated prefill on the same card: the worker's parameters are
+    # the engine's tensors
+    worker = PrefillWorker(QWEN3_8B, dcfg, t_params, prefill_device="cuda", decode_device="cuda")
+    try:
+        shared = all(worker.t_params["layers"][k] is t_params["layers"][k] for k in t_params["layers"])
+        log(f"[admission-disagg] worker on {worker.prefill_device}, engine on {worker.decode_device}; "
+            f"the worker's weights are the engine's tensors: {shared}")
+        assert shared and worker.t_params["embed"] is t_params["embed"]
+        engine = serving_engine(params, 4, PARITY_NEW, prefill_worker=worker)
+        outs = counted_run(engine, "[admission-disagg] A, B, C through the worker:",
+                           lambda cyc: serving_expected(engine, cyc, 0, 3), drained(submit_all((a, {}), (b, {}), (c, {}))))
+    finally:
+        worker.stop()
+    check_tokens("[admission-disagg]", {"A": (outs[0], ref_a), "B": (outs[1], ref_b), "C": (outs[2], c_tokens)},
+                 t_params)
+    del engine, worker
+    release()
+
+
+def admission_int8_phase(params: tuple, greedy_int8: list) -> None:
+    """Phase 4h (int8): A through the prefix-cache route of an int8 serving
+    engine (kv_quant: the entry holds int8 rows and scales), cold then warm,
+    equals phase 4b's tokens both times."""
+    a = prompts()[0][0]
+    engine = serving_engine(params, 4, PARITY_NEW, kv_quant=True, prefix_cache_mb=1024)
+
+    def one(eng):
+        req = eng.submit(a)
+        eng.run_until_drained()
+        return [req]
+
+    cold, = counted_run(engine, "[admission-int8] A cold:", lambda cyc: serving_expected(engine, cyc, 1), one)
+    warm, = counted_run(engine, "[admission-int8] A warm (resumes from its own 512 int8 rows):",
+                        lambda cyc: serving_expected(engine, cyc, 0, resumes=1), one)
+    assert engine._prefix_cache.hits == 1, engine._prefix_cache.hits
+    check_tokens("[admission-int8]", {"A cold": (cold, greedy_int8[0]), "A warm": (warm, greedy_int8[0])}, params[1])
+
+
 def serving_timing_phase(params: tuple, smi: str) -> list:
     """Phase 5f: the bf16 serving engine (SERVE_LANES lanes, TIMING_NEW new
     tokens, steps_per_sync 4) behind the HTTP server, driven by
@@ -1005,6 +1243,167 @@ def serving_timing_phase(params: tuple, smi: str) -> list:
         log(f"[timing-serving] {smi}: tau {row['tau_mode']:12s} conc {row['concurrency']:2d}: "
             f"{row['tok_s']:8.1f} tok/s, accept length {row['mean_accept_length']:.2f}, mean e2e latency "
             f"{row['mean_e2e_latency_s']:.3f} s, {row['ms_per_cycle']:.1f} ms per cycle ({row['cycles']} cycles)")
+    return rows
+
+
+def busy_ms(kernels: list) -> float:
+    """Device busy ms: the union of the kernels' intervals."""
+    total, end = 0.0, -1.0
+    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
+        if s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total / 1e3
+
+
+def admission_cost(route: str, fn, per: int = 1) -> dict:
+    """One admission prefill by ``route``: host wall ms (median of 3 calls,
+    each ending in a synchronize, after a warm-up), and from a fourth call
+    under torch.profiler the device busy ms and kernel launches; ``per``
+    requests share one call (a group), and the numbers are per request."""
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / per)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    row = dict(route=route, requests_per_call=per, wall_ms=float(np.median(walls)), spread_ms=walls,
+               device_busy_ms=busy_ms(kernels) / per, launches=len(kernels) / per)
+    log("[admission-cost] " + json.dumps(row))
+    return row
+
+
+def admission_cost_phase(params: tuple, smi: str) -> list:
+    """Phase 5h, per admission: the prefill work each route puts on the
+    loop's stream for one 600-token request (bf16, the serving engine's
+    total_len 785): a single-request prefill, the prefix resume from 512
+    cached rows (an 88-row "xla" forward), a group of 16 (per request), one
+    256-token chunk forward, and the prefill worker's 512-token prefix."""
+    dcfg, t_params, d_params = params
+    engine = serving_engine(params, SERVE_LANES, TIMING_NEW, prefix_cache_mb=1024)
+    rng = np.random.default_rng(300)
+    ids = [rng.integers(10, V - 10, size=PROMPT_LEN) for _ in range(SERVE_LANES)]
+    req = Request(rid=0, input_ids=ids[0].astype(np.int32), max_new_tokens=TIMING_NEW, temperature=0.0)
+    padded = engine._padded(req)
+    rows = [admission_cost("single prefill", lambda: spec_engine._prefill_impl(
+        t_params, d_params, torch.from_numpy(padded).cuda(), PROMPT_LEN, 0.0, None, **engine._prefill_common(req)))]
+    engine._compute_single(req)  # publishes its 512-row prefix
+    entry = engine._prefix_cache.lookup(req.input_ids, PROMPT_LEN - 1)[1]
+    rows.append(admission_cost("prefix resume (512 cached rows)",
+                               lambda: engine._resume(req, padded, entry.kv_rows, entry.taps)))
+    group = np.zeros((SERVE_LANES, PROMPT_CAP), np.int64)
+    for j, x in enumerate(ids):
+        group[j, :PROMPT_LEN] = x
+    rows.append(admission_cost(f"group of {SERVE_LANES}", lambda: batched.batched_prefill(
+        t_params, d_params, group, [PROMPT_LEN] * SERVE_LANES, 0.0, tcfg=QWEN3_8B, dcfg=dcfg,
+        total_len=engine.total_len, max_cycles=TIMING_NEW), per=SERVE_LANES))
+    scratch = init_kv_cache(QWEN3_8B, 1, PROMPT_CAP, torch.bfloat16, "cuda")
+    taps = torch.zeros((1, PROMPT_CAP, dcfg.num_taps * QWEN3_8B.hidden_size), dtype=torch.bfloat16, device="cuda")
+    chunk_ids = torch.from_numpy(padded[:, 256:512]).cuda()
+    rows.append(admission_cost("one 256-token chunk forward", lambda: spec_engine._prefill_chunk_impl(
+        t_params, scratch, taps, chunk_ids, 256, tcfg=QWEN3_8B, tap_ids=dcfg.target_layer_ids)))
+    worker = PrefillWorker(QWEN3_8B, dcfg, t_params, prefill_device="cuda", decode_device="cuda")
+    try:
+        rows.append(admission_cost("prefill worker's 512-token prefix", lambda: worker._prefill_prefix(padded, 512)))
+    finally:
+        worker.stop()
+    for row in rows:
+        log(f"[admission-cost] {smi}: {row['route']:36s} {row['wall_ms']:7.1f} ms wall, "
+            f"{row['device_busy_ms']:6.2f} ms device busy, {row['launches']:6.0f} launches per request")
+    del engine, entry, scratch
+    release()
+    return rows
+
+
+def admission_timing_phase(params: tuple, smi: str) -> list:
+    """Phase 5h: the bf16 serving engine (SERVE_LANES lanes, TIMING_NEW new
+    tokens, steps_per_sync 4, tau forced to 7.46) behind the HTTP server,
+    driven by bench/serving.py's client with 2 x concurrency requests of
+    random 600-token prompts, greedy, through each admission route:
+    batch_admission off / on in turns (off, on, on, off, off, on) at
+    concurrency 16, and one pair at 4; shared-prefix traffic (every prompt
+    starts with one 512-token prefix) with the prefix cache off / on (1024
+    MB); admission_chunk 256, prefill_ahead 2 and a prefill worker on the
+    same card, once each at 16."""
+    dcfg, t_params, _ = params
+    rng = np.random.default_rng(200)
+    fresh = lambda n: [rng.integers(10, V - 10, size=PROMPT_LEN).tolist() for _ in range(n)]  # noqa: E731
+    shared = rng.integers(10, V - 10, size=512).tolist()
+    fresh_shared = lambda n: [shared + rng.integers(10, V - 10, size=PROMPT_LEN - 512).tolist()  # noqa: E731
+                              for _ in range(n)]
+    servers, workers = {}, []
+
+    def serve(name: str, **kw) -> tuple:
+        if name not in servers:
+            engine = serving_engine(params, SERVE_LANES, TIMING_NEW, steps_per_sync=4, emulate_tau=REF_TAU, **kw)
+            srv = EngineHTTPServer(engine, host="127.0.0.1", port=0, tokenizer=engine.tokenizer)
+            srv.start()
+            url = f"http://{srv.host}:{srv.port}"
+            serving.run_bench_requests(url, fresh(2), 2, TIMING_NEW)  # warm-up
+            servers[name] = (engine, srv, url)
+        return servers[name]
+
+    def stop(*names) -> None:
+        for name in names:
+            engine, srv, _ = servers.pop(name)
+            srv.stop()
+        release()
+
+    rows = []
+
+    def run(name: str, conc: int, traffic=fresh, **kw) -> dict:
+        engine, _, url = serve(name, **kw)
+        serving._flush(url)
+        cache = engine._prefix_cache
+        cycles0, hits0 = engine.cycle_count, cache.hits if cache is not None else 0
+        reset_counts()
+        m = serving.run_bench_requests(url, traffic(2 * conc), conc, TIMING_NEW)
+        assert m.spec_verify_ct_sum > 0, "speculative decoding did not run"
+        row = dict(route=name, concurrency=conc, requests=m.n_requests, tok_s=m.tokens_per_sec,
+                   mean_e2e_latency_s=m.mean_e2e_latency_s, mean_accept_length=m.mean_accept_length,
+                   cycles=engine.cycle_count - cycles0, wall_s=m.wall_s, launches=counts())
+        if cache is not None:
+            row["prefix_hits"] = cache.hits - hits0
+        rows.append(row)
+        log("[timing-admission] " + json.dumps(row))
+        return row
+
+    admission_cost_phase(params, smi)
+    pairs = {}
+    for name in ("plain", "batch_admission", "batch_admission", "plain", "plain", "batch_admission"):
+        pairs.setdefault(name, []).append(run(name, 16, batch_admission=name == "batch_admission")["tok_s"])
+    for name in ("plain", "batch_admission"):
+        run(name, 4, batch_admission=name == "batch_admission")
+    stop("plain", "batch_admission")
+    for name in ("shared_prefix", "shared_prefix_cache", "shared_prefix_cache", "shared_prefix"):
+        pairs.setdefault(name, []).append(
+            run(name, 16, fresh_shared, prefix_cache_mb=1024 if name.endswith("cache") else 0)["tok_s"])
+    stop("shared_prefix", "shared_prefix_cache")
+    run("admission_chunk_256", 16, admission_chunk=256)
+    stop("admission_chunk_256")
+    run("prefill_ahead_2", 16, prefill_ahead=2)
+    stop("prefill_ahead_2")
+    worker = PrefillWorker(QWEN3_8B, dcfg, t_params, prefill_device="cuda", decode_device="cuda")
+    try:
+        run("disagg_same_card", 16, prefill_worker=worker)
+        stop("disagg_same_card")
+    finally:
+        worker.stop()
+    for name, tok_s in pairs.items():
+        log(f"[timing-admission] {smi}: concurrency 16, {name}: median {float(np.median(tok_s)):.1f} tok/s over "
+            f"{len(tok_s)} runs (spread {min(tok_s):.1f}-{max(tok_s):.1f})")
+    for row in rows:
+        log(f"[timing-admission] {smi}: {row['route']:20s} conc {row['concurrency']:2d}: {row['tok_s']:8.1f} tok/s, "
+            f"mean e2e {row['mean_e2e_latency_s']:.3f} s, accept {row['mean_accept_length']:.2f}, "
+            f"{row['cycles']} cycles, prefill_flash {row['launches']['prefill_flash']}")
     return rows
 
 
@@ -1091,6 +1490,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     # phase 1: device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1175,6 +1575,8 @@ def main() -> int:
             cases.append(prefill_lanes_case(dtype, L, PROMPT_CAP, g, timed=L == 4))
             log("[kernel] " + json.dumps(cases[-1]))
 
+    phase_done("3 (kernels vs plain)", t_start)
+
     # phase 4: exact parity through the kernels, f32, on one set of weights:
     # 4 the default engine, 4c the "pallas" engine, 4d filtered requests, 4e
     # the batched engine, 4g the serving engine; 4b: the int8 path, 4f its
@@ -1194,8 +1596,12 @@ def main() -> int:
     del engine
     release()
     serving_parity_phase(params, greedy, c_tokens)
+    release()
+    phase_done("4-4g (float)", t_start)
+    admission_parity_phase(params, greedy, c_tokens)
     del params
     release()
+    phase_done("4h (float)", t_start)
     params = build_params(torch.float32, int8=True)
     engine = make_engine(params, PARITY_NEW, int8=True)
     launches_int8, greedy_int8 = parity_phase(engine, "[parity-int8]")
@@ -1203,8 +1609,11 @@ def main() -> int:
     del engine
     release()
     serving_int8_phase(params, greedy_int8)
+    release()
+    admission_int8_phase(params, greedy_int8)
     del params
     release()
+    phase_done("4b, 4f, 4g and 4h (int8)", t_start)
 
     # phase 5: timing, bf16; 5c: the "pallas" path and filtered sampling, 5e
     # the batched engine, 5f the serving engine, on the same weights; 5b: the
@@ -1219,14 +1628,20 @@ def main() -> int:
     log("[timing-filtered] " + json.dumps(timing_filtered))
     del engine
     release()
+    phase_done("5, 5c", t_start)
     timing_lanes = batched_timing_phase(params)
+    phase_done("5e", t_start)
     serving_timing_phase(params, smi)
+    phase_done("5f", t_start)
+    admission_timing_phase(params, smi)
     del params
     release()
+    phase_done("5h", t_start)
     timing_int8 = timing_phase(make_engine(build_params(torch.bfloat16, int8=True), TIMING_NEW, int8=True))
     log("[timing-int8] " + json.dumps(timing_int8))
     release()
     server_entry_phase()
+    phase_done("5b, 5g", t_start)
     for key in ("ttft_spec_ms", "ttft_ar_ms", "ar_tpot_ms", "spec_tpot_ms", "spec_forced_tpot_ms"):
         log(f"[timing] {key}: bf16 path {timing[key]:.3f}, pallas path {timing_pallas[key]:.3f}, "
             f"int8 path {timing_int8[key]:.3f}")

@@ -1,7 +1,7 @@
 """Model resolution for the serving entry points.  Port of
 ``dflash_tpu/bench/cli.py::_resolve_models`` only: the rest of that CLI (the
-benchmark modes, metric lines and traces) is ROADMAP.md Queue 1, item
-"Serving, the rest".
+benchmark modes, metric lines and traces) is ROADMAP.md Queue 1, item 1
+("Headline bench and the bench CLI").
 
 A name resolves to a preset with random weights from fixed seeds (target 0,
 draft 1), made on the caller's device: ``tiny``, ``qwen3-4b``, ``qwen3-8b``

@@ -10,9 +10,11 @@ prints a markdown report.  Prompts are random token ids from a seed.
     python -m dflash_tpu_torch.bench.serving --model-name-or-path qwen3-8b --num-lanes 16
     python -m dflash_tpu_torch.bench.serving --device cpu --model-name-or-path tiny --dtype float32
 
-Not ported (they raise ``NotImplementedError``, ROADMAP.md Queue 1, item
-"Serving, the rest"): ``--prefix-cache-mb``, ``--shared-prefix-len`` > 0,
-``--prefill-ahead``, ``--admission-chunk`` and ``--disagg``.
+The engine's admission routes take the JAX bench's flags:
+``--prefix-cache-mb`` (with ``--shared-prefix-len`` traffic: every prompt
+starts with one shared system-prompt prefix), ``--prefill-ahead``,
+``--admission-chunk`` and ``--disagg`` (a prefill worker on card 1 when
+there is one, else on the engine's card).
 """
 
 from __future__ import annotations
@@ -165,8 +167,9 @@ def main(argv=None) -> None:
     p.add_argument("--quant", default="", choices=["", "int8"],
                    help="int8 weight-only quantization for the in-process engine")
     p.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
-    p.add_argument("--prefix-cache-mb", type=int, default=0, help="not ported: raises when set")
-    p.add_argument("--shared-prefix-len", type=int, default=0, help="not ported: raises when > 0")
+    p.add_argument("--prefix-cache-mb", type=int, default=0, help="prompt-prefix cache budget; 0 disables")
+    p.add_argument("--shared-prefix-len", type=int, default=0,
+                   help="length of a system-prompt prefix shared by every request (the prefix cache's traffic)")
     p.add_argument("--steps-per-sync", type=int, default=4, help="decode cycles per scheduling window")
     p.add_argument("--emulate-tau", type=float, default=None,
                    help="benchmark-only acceptance override (mean tau)")
@@ -181,39 +184,48 @@ def main(argv=None) -> None:
     p.add_argument("--topk-pool", type=int, default=64)
     p.add_argument("--stream-interval", type=int, default=4,
                    help="engine service cadence for streaming/stop lanes")
-    p.add_argument("--prefill-ahead", type=int, default=0, help="not ported: raises when set")
-    p.add_argument("--admission-chunk", type=int, default=None, help="not ported: raises when set")
-    p.add_argument("--disagg", action="store_true", help="not ported: raises when set")
+    p.add_argument("--prefill-ahead", type=int, default=0,
+                   help="stage up to N queued prefills while every lane is busy")
+    p.add_argument("--admission-chunk", type=int, default=None,
+                   help="chunk-interleaved admission prefill (tokens per chunk); unset: one prefill forward")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill: long admissions' prefix forwards on a prefill worker on card 1 "
+                        "(on the engine's card when there is one card) and handed to the engine")
     p.add_argument("--vocab-size", type=int, default=1000,
                    help="prompt-id range when benchmarking an external --url server")
     args = p.parse_args(argv)
-    for flag, on in (("--prefix-cache-mb", args.prefix_cache_mb > 0),
-                     ("--shared-prefix-len", args.shared_prefix_len > 0),
-                     ("--prefill-ahead", args.prefill_ahead > 0),
-                     ("--admission-chunk", args.admission_chunk is not None),
-                     ("--disagg", args.disagg)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to dflash_tpu_torch yet "
-                                      "(ROADMAP.md Queue 1, item 'Serving, the rest')")
+    if args.shared_prefix_len >= args.prompt_len:
+        raise SystemExit(f"--shared-prefix-len {args.shared_prefix_len} must be < --prompt-len {args.prompt_len} "
+                         "(each request needs its own tail)")
 
     import numpy as np
 
-    server = None
+    server = worker = engine = None
     url = args.url
     if url is None:
         import torch
 
         from dflash_tpu_torch.bench.cli import _resolve_models
         from dflash_tpu_torch.bench.tokenizer import SyntheticTokenizer
-        from dflash_tpu_torch.engine import ContinuousBatchingEngine, EngineConfig
+        from dflash_tpu_torch.engine import ContinuousBatchingEngine, EngineConfig, PrefillWorker
         from dflash_tpu_torch.engine.server import EngineHTTPServer
 
-        if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to run on the CPU")
         tcfg, dcfg, t_params, d_params = _resolve_models(args)  # honors --quant and --device
+        if args.disagg:
+            # JAX's rule: the prefill role on the second card when there is
+            # one, else beside the engine on its own card
+            prefill = device
+            if device.type == "cuda":
+                device = torch.device("cuda", 0)
+                prefill = torch.device("cuda", 1 if torch.cuda.device_count() > 1 else 0)
+            worker = PrefillWorker(tcfg, dcfg, t_params, prefill_device=prefill, decode_device=device,
+                                   kv_quant=args.kv_quant)
         engine = ContinuousBatchingEngine(
-            tcfg, dcfg, t_params, d_params,
-            EngineConfig(
+            tcfg, dcfg, t_params, d_params, prefill_worker=worker,
+            cfg=EngineConfig(
                 num_lanes=args.num_lanes,
                 max_new_tokens=args.max_new_tokens,
                 block_size=args.block_size or dcfg.block_size,
@@ -225,8 +237,11 @@ def main(argv=None) -> None:
                 temperature=args.temperature,
                 sampling_filters=args.sampling_filters,
                 topk_pool=args.topk_pool,
+                prefix_cache_mb=args.prefix_cache_mb,
+                admission_chunk=args.admission_chunk,
+                prefill_ahead=args.prefill_ahead,
             ),
-            device=args.device,
+            device=device,
         )
         server = EngineHTTPServer(engine, port=0, tokenizer=SyntheticTokenizer(tcfg.vocab_size))
         server.start()
@@ -236,7 +251,12 @@ def main(argv=None) -> None:
         vocab = args.vocab_size  # an external server's vocab: prompt ids must stay in range
 
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(10, vocab - 10, size=(args.prompt_len,)).tolist() for _ in range(args.num_requests)]
+    # a shared "system prompt" prefix and a tail of each request's own (the
+    # chat-serving shape the prefix cache is for); the prompts are
+    # prompt_len long either way
+    shared = rng.integers(10, vocab - 10, size=(args.shared_prefix_len,)).tolist()
+    prompts = [shared + rng.integers(10, vocab - 10, size=(args.prompt_len - args.shared_prefix_len,)).tolist()
+               for _ in range(args.num_requests)]
     sampling = dict(temperature=args.temperature, stream=args.stream, top_k=args.top_k, top_p=args.top_p)
     rows = []
     try:
@@ -252,6 +272,11 @@ def main(argv=None) -> None:
     finally:
         if server is not None:
             server.stop()
+        if worker is not None:
+            worker.stop()
+    cache = getattr(engine, "_prefix_cache", None)
+    if cache is not None:
+        print(f"[serving] prefix cache: {cache.hits} hits, {cache.misses} misses", file=sys.stderr, flush=True)
 
     report = markdown_report(rows, f"dflash_tpu_torch serving ({args.model_name_or_path}, {args.device})")
     print(report)

@@ -5,11 +5,14 @@ from dflash_tpu_torch.engine.batching import (
     EngineConfig,
     Request,
 )
+from dflash_tpu_torch.engine.disagg import DisaggResult, PrefillWorker
 
 __all__ = [
     "BucketedEngine",
     "BucketSpec",
     "ContinuousBatchingEngine",
+    "DisaggResult",
     "EngineConfig",
+    "PrefillWorker",
     "Request",
 ]

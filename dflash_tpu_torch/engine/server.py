@@ -413,12 +413,15 @@ def main(argv=None) -> None:
     p.add_argument("--sampling-filters", action="store_true",
                    help="enable per-request top_k/top_p (one filtered-sampler call per cycle)")
     p.add_argument("--topk-pool", type=int, default=64,
-                   help="the filtered sampler's candidate pool: exact for any top_k <= pool; "
-                        "wider requests are refused, never silently clamped")
-    p.add_argument("--prefix-cache-mb", type=int, default=0, help="not ported: raises when set")
+                   help="the filtered sampler's candidate pool: it seeds the threshold search; the keep set is "
+                        "exact for any top_k")
+    p.add_argument("--prefix-cache-mb", type=int, default=0,
+                   help="prompt-prefix cache budget (MiB of prefix rows and taps); 0 disables")
     p.add_argument("--stream-interval", type=int, default=4,
                    help="service cadence for streaming/stop lanes (windows between output reads)")
-    p.add_argument("--admission-chunk", type=int, default=None, help="not ported: raises when set")
+    p.add_argument("--admission-chunk", type=int, default=None,
+                   help="chunk-interleaved admission prefill: long prompts prefill this many tokens per decode "
+                        "window instead of one forward that stalls every lane; unset disables")
     p.add_argument("--buckets", default=None,
                    help="total_len ladder: comma list of prompt_cap:max_new:lanes rungs, "
                         "e.g. 256:128:8,1024:512:4 (BucketedEngine)")
@@ -430,11 +433,6 @@ def main(argv=None) -> None:
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu to serve on the CPU")
-    for flag, on in (("--prefix-cache-mb", args.prefix_cache_mb > 0),
-                     ("--admission-chunk", args.admission_chunk is not None)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported to dflash_tpu_torch yet "
-                                      "(ROADMAP.md Queue 1, item 'Serving, the rest')")
     tcfg, dcfg, t_params, d_params = _resolve_models(args)  # honors --quant and --device
     tokenizer = resolve_tokenizer(
         args.model_name_or_path if Path(args.model_name_or_path).exists() else None, tcfg.vocab_size)
@@ -445,8 +443,10 @@ def main(argv=None) -> None:
         prompt_cap=args.prompt_cap,
         stop_token_ids=(tokenizer.eos_token_id,) if tokenizer.eos_token_id is not None else (),
         kv_quant=args.kv_quant,
+        prefix_cache_mb=args.prefix_cache_mb,
         sampling_filters=args.sampling_filters,
         topk_pool=args.topk_pool,
+        admission_chunk=args.admission_chunk,
         stream_interval=args.stream_interval,
     )
     if args.buckets:

@@ -111,6 +111,18 @@ def checked_ptrs(op: str, *tensors) -> list[int]:
     return [t.data_ptr() for t in tensors]
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch counter ``fn.<attr>``.  A read-modify-
+    write of an attribute is not atomic under the interpreter lock, and the
+    serving engine's thread and a disaggregated prefill worker's thread may
+    launch at once: the lock keeps the count exact."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 _counters: dict = {}
 
 
@@ -118,8 +130,10 @@ def merge_counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters for the kernels that merge their
     blocks' partials in the same launch (the last block to count itself done
     merges); each such launch leaves its counters zero again.  One buffer per
-    device, grown on demand and shared by those kernels: calls on one device
-    run on one stream at a time, as the engine's do."""
+    device, grown on demand and shared by those kernels: safe only while the
+    calls on one device run on one stream, in order, as the engine's do (its
+    loop thread and a prefill worker's thread both launch on their thread's
+    default stream, which is the device's one legacy default stream)."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
         buf = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)

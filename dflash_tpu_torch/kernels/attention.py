@@ -121,7 +121,7 @@ def verify_attention(
                 int(start), tiles, float(d ** -0.5), stream)
     if rc != 0:
         raise RuntimeError(f"verify_attention kernel launch failed: CUDA error {rc}")
-    verify_attention.launches += 1
+    _build.count_launch(verify_attention)
     return out
 
 

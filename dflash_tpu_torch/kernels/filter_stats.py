@@ -134,7 +134,7 @@ def _launch(x: torch.Tensor, thr_bits: torch.Tensor) -> tuple:
                 stream)
     if rc != 0:
         raise RuntimeError(f"filter_stats kernel launch failed: CUDA error {rc}")
-    filter_stats.launches += 1
+    _build.count_launch(filter_stats)
     return c_ge, c_gt, mass_gt, lse, row_min
 
 

@@ -180,7 +180,7 @@ def matmul_int8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
         )
     if rc != 0:
         raise RuntimeError(f"matmul_int8 kernel launch failed: CUDA error {rc}")
-    matmul_int8.launches += 1
+    _build.count_launch(matmul_int8)
     return out
 
 

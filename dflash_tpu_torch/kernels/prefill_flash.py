@@ -87,7 +87,7 @@ def flash_prefill_attention(
         rc = fn(_build.DTYPE_CODES[q.dtype], d, *ptrs, L, S, nh, n_kv, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"prefill_flash kernel launch failed: CUDA error {rc}")
-    flash_prefill_attention.launches += 1
+    _build.count_launch(flash_prefill_attention)
     return out
 
 

@@ -253,9 +253,9 @@ def fused_ctx_block_attention_lanes(
     if rc != 0:
         raise RuntimeError(f"verify_fused kernel launch failed: CUDA error {rc}")
     if quant:
-        fused_ctx_block_attention.launches_int8 += 1
+        _build.count_launch(fused_ctx_block_attention, "launches_int8")
     else:
-        fused_ctx_block_attention.launches += 1
+        _build.count_launch(fused_ctx_block_attention)
     return out
 
 

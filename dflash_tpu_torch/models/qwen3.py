@@ -11,8 +11,12 @@ Attention goes through the port's kernels: ``forward_prefill`` through
 ``prefill_flash``, ``forward_block_candidates`` through ``verify_fused`` (its
 int8 branch when the context cache is a ``QuantKVCache``), and the
 full-buffer ``forward`` with ``attn_impl="pallas"`` through
-``verify_attention``.  Weights may
-be int8 ``QTensor`` stacks (``quant/quantize.py``); ``linear`` then runs
+``verify_attention``.  The full-buffer ``forward``'s default "xla" branch
+(the prefix-resume and chunked prefills) attends with
+``ops/attention.py``'s ``gqa_attention`` / ``gqa_attention_quant``, plain
+PyTorch on the card too: JAX runs that attention in XLA, not in a Pallas
+kernel, so there is no TPU kernel to port for it.  Weights may be int8
+``QTensor`` stacks (``quant/quantize.py``); ``linear`` then runs
 ``matmul_int8``.  On CPU tensors the kernels run their plain versions.  The
 MoE MLP is not ported yet (ROADMAP.md).
 """
@@ -24,11 +28,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache, update_layer
+from dflash_tpu_torch.cache.kv import AnyKVCache, QuantKVCache, update_layer, update_layer_quant
 from dflash_tpu_torch.core.config import ModelConfig
 from dflash_tpu_torch.kernels.attention import verify_attention
 from dflash_tpu_torch.kernels.prefill_flash import flash_prefill_attention
 from dflash_tpu_torch.kernels.verify_fused import fused_ctx_block_attention, fused_ctx_block_attention_lanes
+from dflash_tpu_torch.ops.attention import gqa_attention, gqa_attention_quant
 from dflash_tpu_torch.ops.linear import linear
 from dflash_tpu_torch.ops.norms import rms_norm
 from dflash_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -156,6 +161,14 @@ class ForwardResult(NamedTuple):
     kv: AnyKVCache  # the cache, with this call's K/V rows written (in place)
 
 
+def _attend_cache(q: torch.Tensor, kv: AnyKVCache, l: int, mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The "xla" branch's attention over layer ``l`` of the whole cache
+    buffer under the caller's mask (JAX's unbucketed ``_attend_cache``)."""
+    if isinstance(kv, QuantKVCache):
+        return gqa_attention_quant(q, kv.k[l], kv.k_scale[l], kv.v[l], kv.v_scale[l], mask, scale)
+    return gqa_attention(q, kv.k[l], kv.v[l], mask, scale)
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -163,38 +176,50 @@ def forward(
     positions: torch.Tensor,  # [B, S] absolute positions
     kv: AnyKVCache,
     write_pos: int,  # cache row of embeds[:, 0]
-    mask: Optional[torch.Tensor],  # [S, T] over the full buffer: the "xla" branch's (not ported)
+    mask: Optional[torch.Tensor],  # bool [S, T] or [B, S, T] over the full buffer ("xla")
     tap_ids: Tuple[int, ...] = (),
     attn_impl: str = "xla",
 ) -> ForwardResult:
     """One target forward over S tokens that writes their K/V into ``kv`` at
-    ``write_pos``, layer by layer and in place, and attends over the cache
-    after the write.
+    ``write_pos`` (quantized on the way in for an int8 cache), layer by layer
+    and in place, and attends over the cache after the write.
 
-    Only ``attn_impl="pallas"`` is ported: attention through the
-    frontier-bounded ``verify_attention`` kernel, which reads cache rows below
-    ``write_pos + S`` and lets row i attend keys j <= write_pos + i.  Valid
-    when ``positions[0, i] == write_pos + i`` (the verify / AR decode pattern),
-    batch 1, unquantized cache; ``mask`` is not read there.  The "xla",
-    "bucketed" and quantized-cache branches (``_attend_cache``,
-    ``gqa_attention_quant(_bucketed)``) are ROADMAP Queue 1 item 13.
+    ``attn_impl="xla"``: every row of the cache buffer under ``mask`` (the
+    caller encodes causality and the valid frontier), through
+    ``gqa_attention`` or, for a ``QuantKVCache``, ``gqa_attention_quant``.
+    ``"pallas"``: the frontier-bounded ``verify_attention`` kernel, which
+    reads cache rows below ``write_pos + S`` and lets row i attend keys j <=
+    write_pos + i; valid when ``positions[0, i] == write_pos + i`` (the
+    verify / AR decode pattern), batch 1, unquantized cache; ``mask`` is not
+    read.  "bucketed" (``attn_limit``) and "fused" are ROADMAP.md Queue 1
+    item 6.
     """
     _require_dense(cfg)
-    if attn_impl != "pallas":
+    if attn_impl not in ("xla", "pallas"):
         raise NotImplementedError(
             f"qwen3.forward(attn_impl={attn_impl!r}) is not ported to dflash_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 13); attn_impl='pallas' is")
+            "(ROADMAP.md Queue 1 item 6); 'xla' and 'pallas' are")
     B, S, _ = embeds.shape
-    if B != 1 or isinstance(kv, QuantKVCache):
+    quant = isinstance(kv, QuantKVCache)
+    if attn_impl == "pallas" and (B != 1 or quant):
         raise ValueError("attn_impl='pallas' needs batch 1 + bf16 cache")
+    if attn_impl == "xla" and mask is None:
+        raise ValueError("attn_impl='xla' attends under the caller's [S, T] mask; got None")
+    scale = cfg.head_dim ** -0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     hidden = embeds
     taps = {}
     for l in range(cfg.num_hidden_layers):
         p = _layer(params, l)
         q, k, v = _qkv(p, cfg, hidden, cos, sin)
-        update_layer(kv.k[l], kv.v[l], k, v, write_pos)
-        attn = verify_attention(q, kv.k[l], kv.v[l], write_pos, block=S)
+        if quant:
+            update_layer_quant(kv.k[l], kv.k_scale[l], kv.v[l], kv.v_scale[l], k, v, write_pos)
+        else:
+            update_layer(kv.k[l], kv.v[l], k, v, write_pos)
+        if attn_impl == "pallas":
+            attn = verify_attention(q, kv.k[l], kv.v[l], write_pos, block=S)
+        else:
+            attn = _attend_cache(q, kv, l, mask, scale)
         hidden = _finish_layer(p, cfg, hidden, attn)
         if l in tap_ids:
             taps[l] = hidden

@@ -1,7 +1,12 @@
-"""Grouped-query attention with boolean masks: the plain PyTorch versions of
-the port's two attention kernels.  Port of ``gqa_attention`` and of
-``gqa_attention_quant_ctx_plus_block`` (bf16/f32 and int8 ctx) in
-``dflash_tpu/ops/attention.py``.
+"""Grouped-query attention with boolean masks.  Port of ``gqa_attention``,
+``gqa_attention_quant`` and ``gqa_attention_quant_ctx_plus_block`` (bf16/f32
+and int8 ctx) in ``dflash_tpu/ops/attention.py``.
+
+``gqa_attention`` and ``gqa_attention_quant_ctx_plus_block`` are the plain
+versions of the port's attention kernels.  ``gqa_attention`` and
+``gqa_attention_quant`` are also what ``qwen3.forward``'s "xla" branch
+attends with, on the card too: JAX computes that attention in XLA, outside
+any Pallas kernel, so there is no TPU kernel to port for it.
 
 Query head ``h`` reads kv head ``h // g`` (JAX's ``q.reshape(..., n_kv, g, d)``).
 Masked key rows get a -1e30 score in float32 before the softmax, so they carry
@@ -91,3 +96,33 @@ def gqa_attention_quant_ctx_plus_block(
     out = (a1[..., None] * o1 + a2[..., None] * o2) / denom[..., None]
     out = out.movedim(3, 1)  # [C, B, n_kv, g, d]
     return out.reshape(Cc, B, n_heads * d).to(q.dtype)
+
+
+def gqa_attention_quant(
+    q: torch.Tensor,  # [B, Sq, n_heads, d]
+    k_q: torch.Tensor,  # [B, Sk, n_kv, d] int8
+    k_scale: torch.Tensor,  # [B, Sk, n_kv] f32
+    v_q: torch.Tensor,  # [B, Sk, n_kv, d] int8
+    v_scale: torch.Tensor,  # [B, Sk, n_kv] f32
+    mask: torch.Tensor,  # bool [B, Sq, Sk] or [Sq, Sk]; True = attend
+    scale: float,
+) -> torch.Tensor:
+    """GQA over an int8 cache, in JAX's order: int8 rows are exact in q's
+    dtype, the key scales multiply the scores (times ``scale``), the value
+    scales multiply the softmax weights, which are rounded to q's dtype
+    before the value product.  Returns [B, Sq, n_heads * d] in q's dtype."""
+    b, sq, n_heads, d = q.shape
+    n_kv = k_q.shape[2]
+    groups = n_heads // n_kv
+    qg = q.reshape(b, sq, n_kv, groups, d).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_q.to(q.dtype).float())
+    ks = k_scale.movedim(-1, 1)[:, :, None, None, :]  # [B, n_kv, 1, 1, Sk]
+    scores = scores * (ks * scale)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    vs = v_scale.movedim(-1, 1)[:, :, None, None, :]
+    weights = (weights * vs).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights.float(), v_q.to(q.dtype).float())
+    return out.reshape(b, sq, n_heads * d).to(q.dtype)

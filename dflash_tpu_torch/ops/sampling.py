@@ -38,8 +38,9 @@ from dflash_tpu_torch.kernels.filter_stats import ordered_bits as _float_bits_or
 
 GREEDY_TEMP_EPS = 1e-5
 # Default candidate-pool size of the filtered sampler: the pool only seeds the
-# threshold guess, so the keep set is exact for any top_k; SpecEngine.generate
-# rejects top_k > pool, as the JAX engine does.
+# threshold guess, so the keep set is exact for any top_k.  SpecEngine.generate
+# rejects top_k > pool, as JAX's does; the serving engine serves any top_k
+# below the vocabulary, as JAX's does.
 TOPK_POOL = 64
 # Candidate thresholds per filter in the first stats pass.
 REPAIR_W = 8

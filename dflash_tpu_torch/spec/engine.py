@@ -45,8 +45,15 @@ own temperature and top-k / top-p (``SamplingFilters`` with [R] leaves): the
 keep sets of every filtered lane come from one filtered-sampler call.  The
 single-request engine keeps its own stages and launch counts.
 
+Prefills beside the one-forward ``_prefill_impl``: ``prefill_chunk`` (an
+int, or "auto") runs the prompt C tokens at a time through
+``qwen3.forward``'s "xla" branch; ``_prefill_from_prefix_impl`` commits
+cached prefix rows and runs the suffix alone; ``_prefill_chunk_impl`` is one
+chunk of an interleaved admission (the serving engine's prefix cache, chunked
+admission and disaggregated prefill use the last two).
+
 Not ported yet (they raise): ``attn_impl`` "fused" / "bucketed" /
-"xla_fullbuf", chunked / prefix prefill, meshes and sequence sharding.
+"xla_fullbuf", meshes and sequence sharding.
 """
 
 from __future__ import annotations
@@ -134,24 +141,45 @@ def _sync(device: torch.device) -> None:
 # stages
 # ---------------------------------------------------------------------------
 
+def _init_target_cache(t_params, tcfg: ModelConfig, length: int, kv_quant: bool, device) -> AnyKVCache:
+    if kv_quant:
+        return init_quant_kv_cache(tcfg, 1, length, device)
+    return init_kv_cache(tcfg, 1, length, t_params["embed"].dtype, device)
+
+
 def _prefill_target(t_params, tcfg: ModelConfig, input_ids: torch.Tensor, prompt_len: int,
-                    tap_ids, total_len: int, kv_quant: bool):
-    """Target prefill (one cache-free forward): returns (t_kv, taps [1,P,F],
-    last hidden row [1,1,H]).  The prompt K/V stay in the activation dtype
-    through the prefill and are quantized as they are written when
-    ``kv_quant``."""
+                    tap_ids, total_len: int, kv_quant: bool, chunk: Optional[int] = None):
+    """Target prefill: returns (t_kv, taps [1,P,F], last hidden row [1,1,H]).
+
+    ``chunk`` None: one cache-free forward (``forward_prefill``); the prompt
+    K/V stay in the activation dtype through it and are quantized as they
+    are written when ``kv_quant``.  ``chunk`` C: C tokens at a time through
+    the full-buffer ``qwen3.forward`` ("xla"), each chunk writing its rows
+    and attending the rows written before it (JAX's ``fori_loop`` as a
+    Python loop); the hidden row at ``prompt_len - 1`` comes from the chunk
+    that holds it."""
     P = input_ids.shape[1]
     device = input_ids.device
-    if kv_quant:
-        t_kv = init_quant_kv_cache(tcfg, 1, total_len, device)
-    else:
-        t_kv = init_kv_cache(tcfg, 1, total_len, t_params["embed"].dtype, device)
-    positions = torch.arange(P, device=device)[None, :]
-    res = qwen3.forward_prefill(
-        t_params, tcfg, qwen3.embed(t_params, input_ids), positions, tap_ids=tap_ids
-    )
-    write_prompt_rows(t_kv, res.k, res.v)
-    return t_kv, res.taps, res.hidden[:, prompt_len - 1:prompt_len]
+    t_kv = _init_target_cache(t_params, tcfg, total_len, kv_quant, device)
+    embeds = qwen3.embed(t_params, input_ids)
+    if chunk is None:
+        positions = torch.arange(P, device=device)[None, :]
+        res = qwen3.forward_prefill(t_params, tcfg, embeds, positions, tap_ids=tap_ids)
+        write_prompt_rows(t_kv, res.k, res.v)
+        return t_kv, res.taps, res.hidden[:, prompt_len - 1:prompt_len]
+    if P % chunk != 0:
+        raise ValueError(f"prompt pad {P} not divisible by prefill chunk {chunk}")
+    H = tcfg.hidden_size
+    taps = torch.zeros((1, P, max(len(tap_ids), 1) * H), dtype=embeds.dtype, device=device)
+    last_hidden = None
+    for c0 in range(0, P, chunk):
+        pos_c = (c0 + torch.arange(chunk, device=device))[None, :]
+        res = qwen3.forward(t_params, tcfg, embeds[:, c0:c0 + chunk], pos_c, t_kv, c0,
+                            qwen3.causal_mask(pos_c[0], total_len), tap_ids=tap_ids)
+        taps[:, c0:c0 + chunk] = res.taps
+        if c0 <= prompt_len - 1 < c0 + chunk:
+            last_hidden = res.hidden[:, prompt_len - 1 - c0:prompt_len - c0]
+    return t_kv, taps, last_hidden
 
 
 def _init_output_ids(input_ids: torch.Tensor, prompt_len: int, first_token: torch.Tensor,
@@ -162,27 +190,77 @@ def _init_output_ids(input_ids: torch.Tensor, prompt_len: int, first_token: torc
     return output_ids
 
 
-def _prefill_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int,
-                  temperature: float, generator, *, tcfg: ModelConfig, dcfg: DraftConfig,
-                  total_len: int, kv_quant: bool = False,
-                  filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> LoopState:
-    """Target prefill + first-token sample + draft context prefill."""
+def _finish_prefill(t_params, d_params, input_ids: torch.Tensor, prompt_len: int, t_kv: AnyKVCache,
+                    taps: torch.Tensor, last_hidden: torch.Tensor, temperature: float, generator, *,
+                    dcfg: DraftConfig, total_len: int, filters: Optional[SamplingFilters],
+                    topk_pool: int) -> LoopState:
+    """The first-token sample, the token buffer, the features and the draft
+    context prefill over every prompt row's taps [1, P, F]."""
     P = input_ids.shape[1]
     device = input_ids.device
-    dtype = t_params["embed"].dtype
-    t_kv, taps, last_hidden = _prefill_target(
-        t_params, tcfg, input_ids, prompt_len, dcfg.target_layer_ids, total_len, kv_quant
-    )
     first_token = _sample_posterior(qwen3.lm_head(t_params, last_hidden), temperature, generator,
                                     filters, topk_pool)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, dcfg.mask_token_id)
-
     features = torch.zeros((1, total_len, taps.shape[-1]), dtype=taps.dtype, device=device)
     features[:, :P] = taps
-    d_kv = init_kv_cache(dcfg.model, 1, total_len, dtype, device)
+    d_kv = init_kv_cache(dcfg.model, 1, total_len, t_params["embed"].dtype, device)
     positions = torch.arange(P, device=device)[None, :]
     dflash_draft.append_ctx(d_params, dcfg, d_kv, taps, positions, 0)
     return LoopState(output_ids, prompt_len, False, 0, [], generator, t_kv, d_kv, features)
+
+
+def _prefill_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int,
+                  temperature: float, generator, *, tcfg: ModelConfig, dcfg: DraftConfig,
+                  total_len: int, kv_quant: bool = False, prefill_chunk: Optional[int] = None,
+                  filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> LoopState:
+    """Target prefill (whole, or ``prefill_chunk`` tokens at a time) +
+    first-token sample + draft context prefill."""
+    t_kv, taps, last_hidden = _prefill_target(
+        t_params, tcfg, input_ids, prompt_len, dcfg.target_layer_ids, total_len, kv_quant, prefill_chunk
+    )
+    return _finish_prefill(t_params, d_params, input_ids, prompt_len, t_kv, taps, last_hidden, temperature,
+                           generator, dcfg=dcfg, total_len=total_len, filters=filters, topk_pool=topk_pool)
+
+
+def _prefill_from_prefix_impl(t_params, d_params, input_ids: torch.Tensor, prompt_len: int, prefix_kv: AnyKVCache,
+                              prefix_taps: torch.Tensor, temperature: float, generator, *, tcfg: ModelConfig,
+                              dcfg: DraftConfig, total_len: int, kv_quant: bool = False,
+                              filters: Optional[SamplingFilters] = None, topk_pool: int = TOPK_POOL) -> LoopState:
+    """Prefill resuming from a cached prompt prefix (the engine's prefix
+    cache, chunked admission, disaggregated prefill): the prefix rows
+    ``prefix_kv`` (leaves [L, 1, P0, ...], in the cache's own
+    representation: float, or int8 rows and scales) are committed at
+    position 0 with no requantization, and only the suffix [P0, P) runs a
+    forward, the full-buffer ``qwen3.forward`` ("xla") under the causal
+    mask."""
+    P = input_ids.shape[1]
+    P0 = prefix_taps.shape[1]
+    device = input_ids.device
+    t_kv = _init_target_cache(t_params, tcfg, total_len, kv_quant, device)
+    for buf, rows in zip(t_kv, prefix_kv):
+        buf[:, :, :P0] = rows
+    positions = (P0 + torch.arange(P - P0, device=device))[None, :]
+    res = qwen3.forward(t_params, tcfg, qwen3.embed(t_params, input_ids[:, P0:]), positions, t_kv, P0,
+                        qwen3.causal_mask(positions[0], total_len), tap_ids=dcfg.target_layer_ids)
+    taps = torch.cat([prefix_taps.to(res.taps.dtype), res.taps], dim=1)
+    last_hidden = res.hidden[:, prompt_len - 1 - P0:prompt_len - P0]
+    return _finish_prefill(t_params, d_params, input_ids, prompt_len, t_kv, taps, last_hidden, temperature,
+                           generator, dcfg=dcfg, total_len=total_len, filters=filters, topk_pool=topk_pool)
+
+
+def _prefill_chunk_impl(t_params, scratch_kv: AnyKVCache, taps_buf: torch.Tensor, chunk_ids: torch.Tensor, c0: int,
+                        *, tcfg: ModelConfig, tap_ids) -> tuple:
+    """One chunk of an interleaved admission prefill: a C-token forward
+    ("xla") against the scratch cache [L, 1, Pb, ...] holding the prompt
+    rows before ``c0``, its K/V written at ``c0`` and its taps into
+    ``taps_buf`` [1, Pb, F] at ``c0``, in place.  Returns (scratch_kv,
+    taps_buf)."""
+    C = chunk_ids.shape[1]
+    pos_c = (c0 + torch.arange(C, device=chunk_ids.device))[None, :]
+    res = qwen3.forward(t_params, tcfg, qwen3.embed(t_params, chunk_ids), pos_c, scratch_kv, c0,
+                        qwen3.causal_mask(pos_c[0], taps_buf.shape[1]), tap_ids=tap_ids)
+    taps_buf[:, c0:c0 + C] = res.taps
+    return res.kv, taps_buf
 
 
 def _draft_stage(state: LoopState, t_params, d_params, *, dcfg: DraftConfig, block_size: int):
@@ -479,9 +557,10 @@ class ARState:
 
 def _ar_prefill(t_params, input_ids: torch.Tensor, prompt_len: int, temperature: float,
                 generator, *, tcfg: ModelConfig, total_len: int, mask_token_id: int,
-                kv_quant: bool = False, filters: Optional[SamplingFilters] = None) -> ARState:
+                kv_quant: bool = False, prefill_chunk: Optional[int] = None,
+                filters: Optional[SamplingFilters] = None) -> ARState:
     t_kv, _, last_hidden = _prefill_target(t_params, tcfg, input_ids, prompt_len, (), total_len,
-                                           kv_quant)
+                                           kv_quant, prefill_chunk)
     first_token = _sample_posterior(qwen3.lm_head(t_params, last_hidden), temperature, generator,
                                     filters)
     output_ids = _init_output_ids(input_ids, prompt_len, first_token, total_len, mask_token_id)
@@ -549,8 +628,10 @@ class SpecEngine:
     without one raises.  ``kv_quant=True`` keeps the target's KV cache in int8.
     ``attn_impl``: "xla" (the two-part verify, default) or "pallas" (the
     full-buffer forward through the frontier-bounded kernel; the buffers are
-    rounded up to a multiple of 512 rows, as in JAX).  ``topk_pool``: the
-    filtered sampler's candidate pool; ``generate`` rejects a wider top_k.
+    rounded up to a multiple of 512 rows, as in JAX).  ``prefill_chunk``: None
+    (one prefill forward), a chunk size that divides the padded prompt, or
+    "auto" (``_resolve_chunk``).  ``topk_pool``: the filtered sampler's
+    candidate pool; ``generate`` rejects a wider top_k.
     """
 
     def __init__(
@@ -567,16 +648,14 @@ class SpecEngine:
         stop_token_ids: Sequence[int] = (),
         device: str | torch.device = "cuda",
         kv_quant: bool = False,
-        prefill_chunk: Optional[int] = None,
+        prefill_chunk: Optional[int | str] = None,
         mesh=None,
         seq_axis: Optional[str] = None,
         attn_impl: str = "xla",
         topk_pool: int = TOPK_POOL,
     ):
-        if prefill_chunk is not None or mesh is not None or seq_axis is not None:
-            raise NotImplementedError(
-                "prefill_chunk, mesh and seq_axis are not ported to dflash_tpu_torch yet"
-            )
+        if mesh is not None or seq_axis is not None:
+            raise NotImplementedError("mesh and seq_axis are not ported to dflash_tpu_torch yet")
         if attn_impl not in ATTN_IMPLS:
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r} is not ported to dflash_tpu_torch yet; it has {ATTN_IMPLS}")
@@ -599,11 +678,25 @@ class SpecEngine:
         self.prompt_bucket = int(prompt_bucket)
         self.stop_token_ids = tuple(int(s) for s in stop_token_ids)
         self.kv_quant = bool(kv_quant)
+        # "auto": the one-forward prefill up to 16384 padded tokens, chunked
+        # past that (JAX's rule)
+        self.prefill_chunk = prefill_chunk
         self.attn_impl = attn_impl
         self.topk_pool = int(topk_pool)
         self.total_len = self.prompt_cap + self.max_new_tokens + self.block_size + 1
         if attn_impl == "pallas":
             self.total_len = _round_up(self.total_len, 512)
+
+    def _resolve_chunk(self, padded_len: int) -> Optional[int]:
+        """The prefill chunk for a prompt padded to ``padded_len``: "auto"
+        keeps the one-forward prefill up to 16384 tokens, then takes the
+        largest of 512 / 256 / 128 that divides the pad (None if none
+        does)."""
+        if self.prefill_chunk == "auto":
+            if padded_len <= 16384:
+                return None
+            return next((c for c in (512, 256, 128) if padded_len % c == 0), None)
+        return self.prefill_chunk
 
     def _pad_prompt(self, input_ids: np.ndarray) -> tuple[torch.Tensor, int, int]:
         input_ids = np.asarray(input_ids)
@@ -660,7 +753,7 @@ class SpecEngine:
             raise ValueError(
                 f"top_k={top_k} exceeds the engine's exact pool (topk_pool={self.topk_pool}); "
                 f"build the engine with a wider topk_pool instead of silently clamping")
-        ids, prompt_len, _ = self._pad_prompt(input_ids)
+        ids, prompt_len, padded_len = self._pad_prompt(input_ids)
         max_length = prompt_len + self.max_new_tokens
         filters = self._filters(top_k, top_p)
 
@@ -668,8 +761,8 @@ class SpecEngine:
         state = _prefill_impl(
             self.t_params, self.d_params, ids, prompt_len, temperature,
             self._generator(temperature, seed), tcfg=self.tcfg, dcfg=self.dcfg,
-            total_len=self.total_len, kv_quant=self.kv_quant, filters=filters,
-            topk_pool=self.topk_pool,
+            total_len=self.total_len, kv_quant=self.kv_quant,
+            prefill_chunk=self._resolve_chunk(padded_len), filters=filters, topk_pool=self.topk_pool,
         )
         _sync(self.device)
         ttft = time.perf_counter() - t0
@@ -693,14 +786,14 @@ class SpecEngine:
         return self._result(state.output_ids, prompt_len, ttft, decode_wall, state.acc_trace)
 
     def ar_generate(self, input_ids: np.ndarray, temperature: float = 0.0, seed: int = 0) -> GenerationResult:
-        ids, prompt_len, _ = self._pad_prompt(input_ids)
+        ids, prompt_len, padded_len = self._pad_prompt(input_ids)
         max_length = prompt_len + self.max_new_tokens
 
         t0 = time.perf_counter()
         state = _ar_prefill(
             self.t_params, ids, prompt_len, temperature, self._generator(temperature, seed),
             tcfg=self.tcfg, total_len=self.total_len, mask_token_id=self.dcfg.mask_token_id,
-            kv_quant=self.kv_quant,
+            kv_quant=self.kv_quant, prefill_chunk=self._resolve_chunk(padded_len),
         )
         _sync(self.device)
         ttft = time.perf_counter() - t0

@@ -117,9 +117,15 @@ def test_spec_generate_api_matches_engine():
 
 def test_unported_options_raise():
     engine = _make_engine()
+    # prefill_chunk is ported (tests/test_torch_admission.py): a 16-token
+    # chunk of a 17-token prompt (pad 32) gives the one-forward tokens
+    chunked = SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params, max_new_tokens=24,
+                         prompt_cap=64, prompt_bucket=16, prefill_chunk=16, device="cpu")
+    prompt = np.random.default_rng(2).integers(0, engine.tcfg.vocab_size - 2, size=(1, 17))
+    np.testing.assert_array_equal(chunked.generate(prompt).output_ids, engine.generate(prompt).output_ids)
     with pytest.raises(NotImplementedError):
         SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
-                   max_new_tokens=4, prefill_chunk=16, device="cpu")
+                   max_new_tokens=4, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         SpecEngine(engine.tcfg, engine.dcfg, engine.t_params, engine.d_params,
                    max_new_tokens=4, attn_impl="fused", device="cpu")

@@ -1,6 +1,7 @@
 """dflash_tpu_torch's frontier-bounded verify attention and the full-buffer
-``qwen3.forward(attn_impl="pallas")`` against the JAX package, and
-``SpecEngine(attn_impl="pallas")`` tokens against dflash_tpu's.
+``qwen3.forward`` ("pallas", and "xla" on float and int8 caches) against
+the JAX package, and ``SpecEngine(attn_impl="pallas")`` tokens against
+dflash_tpu's.
 
 The JAX side runs as its own tests run it on the CPU: ``verify_attention``
 through the Pallas kernel in interpret mode (it selects that itself off the
@@ -15,12 +16,13 @@ import pytest
 import torch
 
 from dflash_tpu.cache.kv import init_kv_cache as j_init_kv_cache
+from dflash_tpu.cache.kv import init_quant_kv_cache as j_init_quant_kv_cache
 from dflash_tpu.core import config as jconfig
 from dflash_tpu.kernels.attention import verify_attention as j_verify_attention
 from dflash_tpu.models import dflash_draft as jdraft
 from dflash_tpu.models import qwen3 as jqwen3
 from dflash_tpu.spec.engine import SpecEngine as JSpecEngine
-from dflash_tpu_torch.cache.kv import KVCache, init_quant_kv_cache
+from dflash_tpu_torch.cache.kv import KVCache, QuantKVCache, init_quant_kv_cache
 from dflash_tpu_torch.convert import params_from_numpy
 from dflash_tpu_torch.core.config import tiny_draft_config, tiny_target_config
 from dflash_tpu_torch.kernels import attention
@@ -133,9 +135,64 @@ def test_forward_refuses_what_it_does_not_take(target):
     qkv = init_quant_kv_cache(tcfg, 1, 128, device="cpu")
     with pytest.raises(ValueError):  # int8 cache
         qwen3.forward(tp, tcfg, qwen3.embed(tp, ids[:1]), pos, qkv, 0, None, attn_impl="pallas")
-    for impl in ("xla", "bucketed", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for impl in ("bucketed", "fused"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
             qwen3.forward(tp, tcfg, qwen3.embed(tp, ids[:1]), pos, kv, 0, None, attn_impl=impl)
+    # "xla" is ported (test_forward_xla_matches_jax): it attends under the
+    # caller's mask, on a batch and on the int8 cache
+    with pytest.raises(ValueError, match="mask"):
+        qwen3.forward(tp, tcfg, qwen3.embed(tp, ids[:1]), pos, kv, 0, None, attn_impl="xla")
+    res = qwen3.forward(tp, tcfg, qwen3.embed(tp, ids), pos.expand(2, 4), kv, 0, qwen3.causal_mask(pos[0], 128))
+    assert res.hidden.shape == (2, 4, tcfg.hidden_size) and res.kv is kv
+    qres = qwen3.forward(tp, tcfg, qwen3.embed(tp, ids[:1]), pos, qkv, 0, qwen3.causal_mask(pos[0], 128))
+    assert qres.kv is qkv and qkv.k[:, :, :4].abs().sum() > 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("S,write_pos", [(8, 20), (1, 37), (16, 0)])
+def test_forward_xla_matches_jax(target, quant, S, write_pos):
+    """The "xla" branch (the prefix-resume and chunk prefills' forward):
+    hidden, taps and the written rows against JAX's forward under the same
+    causal mask, over a cache holding random rows, float and int8 (the
+    int8 rows equal, their scales within the f32 tolerance); the rest of
+    the cache untouched.  Tolerance 2e-5 absolute (1e-5 relative on the
+    written rows), f32."""
+    jcfg, jp, tcfg, tp = target
+    T, taps = 64, (1, 3)
+    rng = np.random.default_rng(100 + write_pos)
+    shape = (tcfg.num_hidden_layers, 1, T, tcfg.num_key_value_heads, tcfg.head_dim)
+    ids = rng.integers(1, tcfg.vocab_size - 1, size=(1, S))
+    pos = write_pos + np.arange(S)[None, :]
+    jpos = jnp.asarray(pos, jnp.int32)
+    if quant:
+        k8, v8 = (rng.integers(-127, 128, size=shape).astype(np.int8) for _ in range(2))
+        ks, vs = (rng.uniform(0.001, 0.02, size=shape[:-1]).astype(np.float32) for _ in range(2))
+        leaves = (k8, ks, v8, vs)
+        jkv = j_init_quant_kv_cache(jcfg, 1, T)._replace(**dict(zip(("k", "k_scale", "v", "v_scale"),
+                                                                    map(jnp.asarray, leaves))))
+        kv = QuantKVCache(*(torch.from_numpy(x.copy()) for x in leaves))
+    else:
+        leaves = tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+        jkv = j_init_kv_cache(jcfg, 1, T, jnp.float32)._replace(k=jnp.asarray(leaves[0]), v=jnp.asarray(leaves[1]))
+        kv = KVCache(*(torch.from_numpy(x.copy()) for x in leaves))
+    want = jqwen3.forward(jp, jcfg, jqwen3.embed(jp, jnp.asarray(ids)), jpos, jkv, jnp.int32(write_pos),
+                          jqwen3.causal_mask(jpos[0], T), tap_ids=taps)
+    tpos = torch.from_numpy(pos)
+    got = qwen3.forward(tp, tcfg, qwen3.embed(tp, torch.from_numpy(ids)), tpos, kv, write_pos,
+                        qwen3.causal_mask(tpos[0], T), tap_ids=taps)
+    assert got.kv is kv
+    np.testing.assert_allclose(got.hidden.numpy(), np.asarray(want.hidden), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.taps.numpy(), np.asarray(want.taps), atol=ATOL, rtol=0)
+    rows = slice(write_pos, write_pos + S)
+    outside = np.ones(T, bool)
+    outside[rows] = False
+    for name, mine, ref, before in zip(kv._fields, kv, want.kv, leaves):
+        mine, ref = mine.numpy(), np.asarray(ref)
+        if mine.dtype == np.int8:
+            np.testing.assert_array_equal(mine[:, :, rows], ref[:, :, rows], err_msg=name)
+        else:
+            np.testing.assert_allclose(mine[:, :, rows], ref[:, :, rows], atol=ATOL, rtol=1e-5, err_msg=name)
+        np.testing.assert_array_equal(mine[:, :, outside], before[:, :, outside], err_msg=name)
 
 
 @pytest.mark.parametrize("block_size,prompt_len,stop", [(4, 17, ()), (8, 9, tuple(range(0, 128)))])

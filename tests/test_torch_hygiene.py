@@ -26,6 +26,7 @@ import dflash_tpu_torch.kernels.prefill_flash, dflash_tpu_torch.kernels.verify_f
 import dflash_tpu_torch.kernels.matmul_q, dflash_tpu_torch.quant
 import dflash_tpu_torch.kernels.filter_stats, dflash_tpu_torch.kernels.attention
 import dflash_tpu_torch.engine, dflash_tpu_torch.engine.batching, dflash_tpu_torch.engine.server
+import dflash_tpu_torch.engine.disagg, dflash_tpu_torch.engine.prefix_cache
 import dflash_tpu_torch.bench, dflash_tpu_torch.bench.cli, dflash_tpu_torch.bench.tokenizer
 import dflash_tpu_torch.bench.serving
 import chip_smoke

@@ -193,11 +193,27 @@ def test_serving_main_in_process_on_the_cpu(capsys):
     assert "dflash_tpu_torch serving (tiny, cpu)" in out and out.count("\n| ") >= 3
 
 
-@pytest.mark.parametrize("flag", [["--prefix-cache-mb", "8"], ["--shared-prefix-len", "4"],
+@pytest.mark.parametrize("flag", [["--prefix-cache-mb", "8"], ["--shared-prefix-len", "130"],
                                   ["--prefill-ahead", "1"], ["--admission-chunk", "8"], ["--disagg"]])
-def test_serving_main_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="Serving, the rest"):
-        serving.main(["--device", "cpu"] + flag)
+def test_serving_main_refuses_what_is_not_ported(flag, capsys):
+    """The admission flags that were refused before the port had them now
+    run the sweep on the CPU (136-token prompts: one whole prompt bucket of
+    prefix for the prefix cache and the prefill worker); the shared-prefix
+    traffic with the prefix cache hits for every request after the first
+    after each flush."""
+    argv = ["--device", "cpu", "--dtype", "float32", "--num-lanes", "1", "--concurrencies", "2",
+            "--num-requests", "3", "--prompt-len", "136", "--max-new-tokens", "4", "--prompt-cap", "256"] + flag
+    if flag[0] == "--shared-prefix-len":
+        argv += ["--prefix-cache-mb", "8"]
+    serving.main(argv)
+    out = capsys.readouterr()
+    assert "dflash_tpu_torch serving (tiny, cpu)" in out.out and "| 2 | 3 |" in out.out
+    if flag[0] == "--shared-prefix-len":
+        # the warm-up's two requests (a miss, then a hit) and the sweep's three
+        # after the flush that empties the cache (a miss, then two hits)
+        assert "prefix cache: 3 hits, 2 misses" in out.err
+    with pytest.raises(SystemExit):
+        serving.main(["--device", "cpu", "--prompt-len", "8", "--shared-prefix-len", "8"])
 
 
 def test_server_main_needs_the_card_unless_asked_for_the_cpu(tmp_path):
@@ -205,13 +221,13 @@ def test_server_main_needs_the_card_unless_asked_for_the_cpu(tmp_path):
         pytest.skip("this checks the behaviour on a machine without CUDA")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server_mod.main(["--model-name-or-path", "tiny"])
-    for flag in (["--prefix-cache-mb", "8"], ["--admission-chunk", "64"]):
-        with pytest.raises(NotImplementedError):
-            server_mod.main(["--device", "cpu"] + flag)
+    # the prefix cache and chunked admission flags (refused before they
+    # were ported) serve too
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "dflash_tpu_torch.engine.server", "--device", "cpu", "--dtype", "float32",
-         "--port", "0", "--num-lanes", "2", "--max-new-tokens", "6", "--prompt-cap", "32"],
+         "--port", "0", "--num-lanes", "2", "--max-new-tokens", "6", "--prompt-cap", "32",
+         "--prefix-cache-mb", "8", "--admission-chunk", "4"],
         cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         line = proc.stdout.readline()

@@ -10,7 +10,8 @@ counts must be equal request by request; ``emulate_tau`` likewise.  The
 per-lane [R] filters give JAX's keep masks exactly, and JAX's tokens where
 each lane's keep set is its argmax.  The rest holds the engine's own
 behaviour: overlap modes, aborts, streaming, stop strings, seeds, the bucket
-ladder and the options that are not ported.
+ladder and the admission options (each route in detail:
+tests/test_torch_admission.py).
 """
 
 import dataclasses
@@ -33,7 +34,7 @@ from dflash_tpu.spec.engine import SamplingFilters as JFilters
 from dflash_tpu_torch.bench.tokenizer import SyntheticTokenizer
 from dflash_tpu_torch.convert import params_from_numpy
 from dflash_tpu_torch.core import config as tconfig
-from dflash_tpu_torch.engine import BucketedEngine, BucketSpec, ContinuousBatchingEngine, EngineConfig
+from dflash_tpu_torch.engine import BucketedEngine, BucketSpec, ContinuousBatchingEngine, EngineConfig, PrefillWorker
 from dflash_tpu_torch.engine.batching import request_seed
 from dflash_tpu_torch.kernels import filter_stats as fs
 from dflash_tpu_torch.ops import sampling
@@ -360,8 +361,9 @@ def test_submit_checks():
     req = eng.submit(np.arange(5) + 10, temperature=0.8, top_k=1, top_p=0.5)
     assert (req.temperature, req.top_k, req.top_p) == (0.0, 0, 1.0)  # top_k 1 is greedy
     filtered = port_engine(sampling_filters=True, topk_pool=8)
-    with pytest.raises(ValueError):  # wider than the exact pool
-        filtered.submit(np.arange(5) + 10, temperature=0.8, top_k=9)
+    # wider than the pool: accepted as it is (the keep set is exact for any
+    # top_k, as in dflash_tpu)
+    assert filtered.submit(np.arange(5) + 10, temperature=0.8, top_k=9).top_k == 9
     assert filtered.submit(np.arange(5) + 10, temperature=0.8, top_k=10_000).top_k == 0  # >= vocab: off
     assert eng.submit(np.arange(5) + 10, max_new_tokens=99).max_new_tokens == ENGINE["max_new_tokens"]
 
@@ -434,11 +436,41 @@ def test_loop_failure_fails_the_requests_it_holds(monkeypatch):
 @pytest.mark.parametrize("option", [dict(prefix_cache_mb=16), dict(admission_chunk=8), dict(prefill_ahead=1),
                                     dict(batch_admission=True), "prefill_worker"])
 def test_options_left_out_raise(option):
+    """The admission options that were left out of the port (and raised)
+    now run: the five staggered requests give the plain engine's tokens and
+    counts through each (tests/test_torch_admission.py holds each route
+    against dflash_tpu's)."""
     tt, td, ttp, tdp = _models(False)[4:]
     kw = {} if option == "prefill_worker" else option
-    with pytest.raises(NotImplementedError, match="Serving, the rest"):
-        ContinuousBatchingEngine(tt, td, ttp, tdp, EngineConfig(**ENGINE, **kw), device="cpu",
-                                 prefill_worker=object() if option == "prefill_worker" else None)
+    worker = (PrefillWorker(tt, td, ttp, prefill_device="cpu", decode_device="cpu")
+              if option == "prefill_worker" else None)
+    try:
+        eng = ContinuousBatchingEngine(tt, td, ttp, tdp, EngineConfig(**ENGINE, **kw), device="cpu",
+                                       prefill_worker=worker)
+        got = drive(eng, _prompts())
+    finally:
+        if worker is not None:
+            worker.stop()
+    assert_same_requests(got, drive(port_engine(), _prompts()))
+
+
+def test_submit_accepts_topk_beyond_pool_exactly():
+    """submit() takes any top_k below the vocabulary, and the sample is exact
+    whatever the pool: pool 8 (refinement rounds) and pool 128 (the
+    threshold guess) give the same tokens for one seed; top_k >= vocab is a
+    no-op, accepted."""
+    vocab = tconfig.tiny_target_config().vocab_size
+    prompt = np.asarray([5, 6, 7])
+    outs = []
+    for pool in (8, 128):
+        eng = port_engine(sampling_filters=True, topk_pool=pool)
+        outs.append(eng.submit(prompt, temperature=1.0, top_k=vocab - 3, seed=11))
+        eng.run_until_drained()
+        assert outs[-1].error is None
+    np.testing.assert_array_equal(outs[0].output_ids, outs[1].output_ids)
+    off = eng.submit(prompt, temperature=1.0, top_k=vocab, seed=3)
+    eng.run_until_drained()
+    assert off.error is None and off.top_k == 0
 
 
 def test_engine_defaults_to_the_card():
